@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``unet_zoo_tpu_torch``) on one CUDA card.
+
+    python3 chip_smoke.py        # from the repository root; needs one NVIDIA GPU and nvcc
+
+Phases, each printing its own lines:
+
+1. environment: torch and CUDA versions, the card's name and power limit,
+   the kernel build time and ptxas's register/spill report;
+2. every hand-written kernel against its plain PyTorch version on the card,
+   at the kernel tests' shapes, a few edge shapes and each U-Net block shape
+   (batch 8), in float32 and bfloat16;
+3. the slice: the full-width U-Net forward (filters 32/64/128/192, 2 classes,
+   batch 512, 128x128x1, bf16) under inference mode, with the kernel launch
+   count checked; those logits against the same model with every block on
+   the chain's plain version, on the card; a batch-2 float32 forward on the
+   card against the same weights on the CPU (plain path); and the main
+   path's bf16 logits of two images against that f32 CPU model;
+4. each block at batch 512 on the model's weights: the kernel against its
+   plain version, then times with CUDA events: the forward's images/s and
+   each block's kernel time beside its plain version's.
+
+Then a JSON line of the kernels, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
+exit code is non-zero; without a GPU the script exits 1 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+BATCH = 512
+IMAGE = 128
+FILTERS = (32, 64, 128, 192)
+FORWARD_BATCHES = 3  # forwards of the counted main-path run
+STAGES_PER_BLOCK = 3
+# the 7 U-Net blocks at full width: (name, spatial size, C_in after the concat, C_out)
+BLOCKS = [
+    ("down0", 128, 1, 32), ("down1", 64, 32, 64), ("down2", 32, 64, 128),
+    ("down3", 16, 128, 192), ("up2", 32, 320, 128), ("up1", 64, 192, 64),
+    ("up0", 128, 96, 32),
+]
+# the shapes of tests/test_pallas.py: x shape, [(C_in, C_out) per stage]
+TEST_SHAPES = [
+    ((2, 16, 16, 4), [(4, 8), (8, 8), (8, 8)]),
+    ((1, 8, 8, 2), [(2, 4)]),
+    ((3, 20, 12, 4), [(4, 4), (4, 6)]),
+    ((1, 33, 17, 3), [(3, 5), (5, 5), (5, 2)]),
+]
+# edges the main path does not reach: one pixel, images narrower or shorter
+# than a tile, C_in not a multiple of 8 over several K chunks, C_out
+# spanning a partial second tile, odd C_out in the 64-wide tile
+EDGE_SHAPES = [
+    ((1, 1, 1, 37), [(37, 100)]),
+    ((2, 5, 40, 9), [(9, 65), (65, 3)]),
+    ((1, 17, 3, 16), [(16, 64), (64, 33)]),
+]
+# max |kernel - plain| <= F32_RTOL * max|plain|: both accumulate in f32 (TF32
+# off), only the summation order differs
+F32_RTOL = 1e-4
+# bf16: the kernel rounds once per stage after the f32 bias add, the plain
+# version also rounds cuDNN's conv output before it; allow BF16_ULPS ulps of
+# max|plain| over the chain
+BF16_ULPS = 4
+# the bf16 main path against the plain path (bf16) or the f32 model, through
+# 22 convs that each round to bf16: BF16_FORWARD_ULPS ulps of max|logit|
+# (on an H100: 1 against the plain path, 2.3 against the f32 CPU model)
+BF16_FORWARD_ULPS = 4
+# the seed-0 model predicts class 1 at every pixel, so argmax agreement says
+# nothing; the logit difference d = l1 - l0 varies with the input instead.
+# In each image, rms(d_got - d_want) <= D_RTOL * std(d_want) over the batch
+# (0.018 measured for bf16 against f32 on the CPU plain path)
+D_RTOL = 0.05
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def bf16_ulp(value: float) -> float:
+    return 2.0 ** (math.floor(math.log2(value)) - 7)
+
+
+def chain_weights(chans, gen, device, scale=None):
+    ks, bs = [], []
+    for ci, co in chans:
+        std = scale if scale is not None else (2.0 / (9 * ci)) ** 0.5
+        ks.append((torch.randn((co, ci, 3, 3), generator=gen) * std).to(device))
+        bs.append((torch.randn((co,), generator=gen) * (1.0 if scale is not None else 0.1)).to(device))
+    return ks, bs
+
+
+def compare(conv_chain, x, ks, bs, label):
+    """Kernel vs plain version on the same CUDA tensors; returns max |diff|."""
+    out = conv_chain.fused_conv_chain(x, ks, bs)
+    ref = conv_chain.fused_conv_chain_reference(x, ks, bs)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype, f"{label}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    check(scale > 0, f"{label}: plain output is all zero")
+    tol = F32_RTOL * scale if x.dtype == torch.float32 else BF16_ULPS * bf16_ulp(scale)
+    log(f"[kernel] {label:<44} max|diff| {err:.3e}  max|ref| {scale:.3e}  tol {tol:.3e}")
+    check(err <= tol, f"{label}: max|diff| {err} > tol {tol}")
+    return err
+
+
+def logits_agree(got, want, label):
+    """Holds bf16 main-path logits (B, H, W, 2) against reference logits."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = BF16_FORWARD_ULPS * bf16_ulp(scale)
+    d_got, d_want = got[..., 1] - got[..., 0], want[..., 1] - want[..., 0]
+    spread = d_want.std().item()
+    worst = ((d_got - d_want) ** 2).mean(dim=(1, 2)).sqrt().max().item() / spread
+    share = (d_want > 0).float().mean().item()
+    log(f"[slice] {label}: max|diff| {err:.3e}  max|ref| {scale:.3e}  tol {tol:.3e}; "
+        f"d = l1 - l0: std {spread:.3e}, worst image rms(diff)/std {worst:.4f} (tol {D_RTOL}); "
+        f"class-1 share {share:.4f}")
+    check(err <= tol, f"{label}: max|diff| {err} > {tol}")
+    check(worst <= D_RTOL, f"{label}: logit difference off by {worst} of its spread")
+
+
+def plain_path(model, x):
+    """``model(x)`` with every block on the conv chain's plain version."""
+    from unet_zoo_tpu_torch.ops import conv
+    from unet_zoo_tpu_torch.ops.pallas import conv_chain
+
+    def plain(x, ks, bs, packed=None):
+        return conv_chain.fused_conv_chain_reference(x, ks, bs)
+
+    with mock.patch.object(conv, "fused_conv_chain", plain):
+        return model(x)
+
+
+def cudnn_chain(x, ks, bs):
+    """The same chain as a PyTorch user would write it: cuDNN conv with the
+    bias in x.dtype, then ReLU, per stage (NCHW channels_last view)."""
+    y = x.permute(0, 3, 1, 2)
+    for k, b in zip(ks, bs):
+        y = torch.relu(torch.nn.functional.conv2d(y, k.to(x.dtype), b.to(x.dtype), padding=1))
+    return y
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from unet_zoo_tpu_torch.ops.pallas import _build, conv_chain
+    from unet_zoo_tpu_torch.models.registry import get_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+
+    # 1. environment and build
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | card: {card}")
+    log(f"[env] kernel build+load {build_s:.2f} s -> {os.path.relpath(_build.library_path(), REPO)}")
+    build_log = _build.library_path().with_suffix(".log")
+    if build_log.exists():
+        for line in build_log.read_text().splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[ptxas] {line.strip()}")
+
+    # 2. kernel vs plain version on the card
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for shape, chans in TEST_SHAPES:
+            x = torch.randn(shape, generator=gen).to(dev, dtype)
+            ks, bs = chain_weights(chans, gen, dev, scale=0.2)
+            compare(conv_chain, x, ks, bs, f"{name} test {shape} {chans}")
+        for shape, chans in EDGE_SHAPES:
+            x = torch.randn(shape, generator=gen).to(dev, dtype)
+            ks, bs = chain_weights(chans, gen, dev)
+            compare(conv_chain, x, ks, bs, f"{name} edge {shape} {chans}")
+        x = torch.ones((1, 12, 12, 3), device=dev, dtype=dtype)
+        ks = [torch.full((4, 3, 3, 3), 0.1, device=dev), torch.full((4, 4, 3, 3), 0.1, device=dev)]
+        bs = [torch.zeros(4, device=dev), torch.zeros(4, device=dev)]
+        compare(conv_chain, x, ks, bs, f"{name} zero-border (1, 12, 12, 3)")
+        for block, size, ci, co in BLOCKS:
+            x = torch.randn((8, size, size, ci), generator=gen).to(dev, dtype)
+            ks, bs = chain_weights([(ci, co)] + [(co, co)] * (STAGES_PER_BLOCK - 1), gen, dev)
+            compare(conv_chain, x, ks, bs, f"{name} {block} (8, {size}, {size}, {ci})->{co}")
+
+    # 3. the slice: full-width U-Net forward, bf16, batch 512, through the kernel
+    model = get_model("unet", num_classes=2, num_filters=FILTERS, dtype=torch.bfloat16,
+                      device=dev, generator=torch.Generator().manual_seed(0)).eval()
+    cuda_gen = torch.Generator(device=dev).manual_seed(1)
+    xs = [torch.randn((BATCH, IMAGE, IMAGE, 1), generator=cuda_gen, device=dev)
+          for _ in range(FORWARD_BATCHES)]
+    expected = FORWARD_BATCHES * len(BLOCKS) * STAGES_PER_BLOCK
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    with torch.inference_mode():
+        outs = [model(x) for x in xs]
+    torch.cuda.synchronize()
+    launched = conv_chain.launches
+    log(f"[slice] {FORWARD_BATCHES} forwards of ({BATCH}, {IMAGE}, {IMAGE}, 1) bf16: "
+        f"{launched} conv-chain kernel launches (expected {expected}: 7 blocks x 3 stages each)")
+    check(launched == expected, f"kernel launched {launched} times, expected {expected}")
+    for logits in outs:
+        check(logits.shape == (BATCH, IMAGE, IMAGE, 2) and logits.dtype == torch.bfloat16,
+              f"logits {tuple(logits.shape)} {logits.dtype}")
+        check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        seg = logits.argmax(-1)
+        check(seg.shape == (BATCH, IMAGE, IMAGE), f"segmentation shape {tuple(seg.shape)}")
+    log(f"[slice] logits finite, segmentation {tuple(seg.shape)}, "
+        f"class-1 share {(seg == 1).float().mean().item():.4f}")
+    # the whole main-path output against the same model on the plain path
+    with torch.inference_mode():
+        for i, (x, logits) in enumerate(zip(xs, outs)):
+            logits_agree(logits, plain_path(model, x), f"bf16 forward {i} bs{BATCH}, kernel vs plain path")
+    torch.cuda.synchronize()
+    check(conv_chain.launches == launched, "the plain path launched the kernel")
+    main_logits = outs[0][:2].float().cpu()
+    del outs
+
+    # the same weights in f32 on the card (kernel) and on the CPU (plain path)
+    x2 = torch.randn((2, IMAGE, IMAGE, 1), generator=torch.Generator().manual_seed(2))
+    kw = dict(num_classes=2, num_filters=FILTERS, dtype=torch.float32)
+    m_gpu = get_model("unet", device=dev, generator=torch.Generator().manual_seed(0), **kw).eval()
+    m_cpu = get_model("unet", device="cpu", generator=torch.Generator().manual_seed(0), **kw).eval()
+    with torch.inference_mode():
+        got = m_gpu(x2.to(dev)).cpu()
+        want = m_cpu(x2)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"[slice] f32 batch-2 forward, card kernel vs CPU plain: max|diff| {err:.3e}  "
+        f"max|ref| {scale:.3e}  tol {F32_RTOL * scale:.3e}")
+    check(err <= F32_RTOL * scale, f"f32 forward: max|diff| {err} > {F32_RTOL * scale}")
+    # the main path's bf16 logits of its first 2 images against the f32 CPU model
+    with torch.inference_mode():
+        logits_agree(main_logits, m_cpu(xs[0][:2].cpu()), "bf16 main path vs f32 CPU plain, 2 images")
+
+    # 4. each block at bs512 on the model's weights: kernel vs plain, then times
+    # (CUDA events, after warm-up), beside the card's name and power limit
+    bf16_block_err = 0.0
+    with torch.inference_mode():
+        fwd_ms = min(cuda_ms(lambda: model(xs[0]), 5) for _ in range(2))
+    log(f"[time] U-Net forward bs{BATCH} {IMAGE}x{IMAGE} bf16: {fwd_ms:.3f} ms/batch, "
+        f"{BATCH / fwd_ms * 1e3:.1f} images/s | card: {card}")
+    kernel_total = plain_total = cudnn_total = 0.0
+    with torch.inference_mode():
+        for block, size, ci, co in BLOCKS:
+            convs = [m.conv for m in getattr(model, block).convs.children()]
+            ks, bs = [c.weight for c in convs], [c.bias for c in convs]
+            x = torch.randn((BATCH, size, size, ci), generator=cuda_gen, device=dev).to(torch.bfloat16)
+            err = compare(conv_chain, x, ks, bs, f"bf16 {block} ({BATCH}, {size}, {size}, {ci})->{co}")
+            bf16_block_err = max(bf16_block_err, err)
+            packed = [conv_chain.pack_kernel(k, x.dtype) for k in ks]
+            k_ms, p_ms, c_ms = [], [], []
+            for _ in range(2):
+                k_ms.append(cuda_ms(lambda: conv_chain.fused_conv_chain(x, ks, bs, packed=packed), 5))
+                p_ms.append(cuda_ms(lambda: conv_chain.fused_conv_chain_reference(x, ks, bs), 5))
+                c_ms.append(cuda_ms(lambda: cudnn_chain(x, ks, bs), 5))
+            k, p, c = min(k_ms), min(p_ms), min(c_ms)
+            kernel_total += k
+            plain_total += p
+            cudnn_total += c
+            tflops = 2 * 9 * BATCH * size * size * (ci * co + 2 * co * co) / (k * 1e-3) / 1e12
+            log(f"[time] {block} ({BATCH}, {size}, {size}, {ci})->{co} x3 bf16: kernel {k:.3f} ms "
+                f"({tflops:.1f} TFLOP/s), plain {p:.3f} ms, cuDNN conv+bias+ReLU {c:.3f} ms | card: {card}")
+            del x
+    log(f"[time] 7 blocks: kernel {kernel_total:.3f} ms, plain {plain_total:.3f} ms, "
+        f"cuDNN conv+bias+ReLU {cudnn_total:.3f} ms | card: {card}")
+
+    log(json.dumps({"kernels": [{
+        "name": "fused_conv_chain",
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/conv_chain.py:132",
+        "launches": launched,
+        "max_abs_err": bf16_block_err,
+        "ms": kernel_total,
+        "plain_ms": plain_total,
+    }]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,178 @@
+"""The port's ops against the JAX package's, on the same numpy inputs."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unet_zoo_tpu import ops as jops
+from unet_zoo_tpu.ops import init as jinit
+from unet_zoo_tpu_torch import ops
+from unet_zoo_tpu_torch.bridge import load_jax_params
+from unet_zoo_tpu_torch.ops import init as tinit
+from unet_zoo_tpu_torch.ops.pallas.conv_chain import pack_kernel
+
+
+def _np(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+class TestPool:
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 3), (2, 7, 5, 3), (1, 9, 4, 2)])
+    def test_avg_pool_ceil_matches_jax(self, shape):
+        x = _np(np.random.default_rng(0), *shape)
+        got = ops.avg_pool_ceil(torch.from_numpy(x)).numpy()
+        want = np.asarray(jops.avg_pool_ceil(jnp.asarray(x)))
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, atol=1e-6)
+
+    def test_rejects_non_nhwc(self):
+        with pytest.raises(ValueError):
+            ops.avg_pool_ceil(torch.zeros(2, 4, 4))
+
+
+class TestResize:
+    @pytest.mark.parametrize("align", [False, True])
+    @pytest.mark.parametrize("shape,out", [
+        ((1, 33, 17, 2), (17, 9)),
+        ((1, 17, 9, 2), (33, 17)),
+        ((2, 8, 8, 3), (16, 16)),
+    ])
+    def test_resize_linear_matches_jax(self, shape, out, align):
+        x = _np(np.random.default_rng(1), *shape)
+        got = ops.resize_linear(torch.from_numpy(x), out, align_corners=align).numpy()
+        want = np.asarray(jops.resize_linear(jnp.asarray(x), out, align_corners=align))
+        assert got.shape == want.shape == (shape[0], *out, shape[-1])
+        np.testing.assert_allclose(got, want, atol=1e-5)
+
+    @pytest.mark.parametrize("out", [(16, 16), (50, 30)])
+    def test_upsample_nearest_matches_jax(self, out):
+        x = _np(np.random.default_rng(2), 2, 8, 8, 4)
+        got = ops.upsample_nearest(torch.from_numpy(x), out).numpy()
+        want = np.asarray(jops.upsample_nearest(jnp.asarray(x), out))
+        np.testing.assert_array_equal(got, want)
+
+
+class TestConv:
+    def _pair(self, cin, features, kernel_size, dtype=None):
+        jmod = jops.Conv(features, kernel_size, init_scheme="he_normal",
+                         dtype=None if dtype is None else jnp.bfloat16)
+        tmod = ops.Conv(cin, features, kernel_size, init_scheme="he_normal",
+                        dtype=dtype, generator=torch.Generator().manual_seed(0))
+        return jmod, tmod
+
+    def test_tuple_input_is_a_channel_concat(self):
+        rng = np.random.default_rng(3)
+        a, b = _np(rng, 2, 9, 7, 3), _np(rng, 2, 9, 7, 2)
+        jmod, tmod = self._pair(5, 4, 3)
+        variables = jmod.init(jax.random.PRNGKey(0), (jnp.asarray(a), jnp.asarray(b)))
+        want = np.asarray(jmod.apply(variables, (jnp.asarray(a), jnp.asarray(b))))
+        load_jax_params(tmod, jax.device_get(variables["params"]))
+        got = tmod((torch.from_numpy(a), torch.from_numpy(b))).detach().numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        whole = tmod(torch.from_numpy(np.concatenate([a, b], -1))).detach().numpy()
+        np.testing.assert_array_equal(got, whole)
+
+    @pytest.mark.parametrize("kernel_size", [1, 3])
+    def test_padding_rule_matches_jax(self, kernel_size):
+        x = _np(np.random.default_rng(4), 2, 6, 5, 3)
+        jmod, tmod = self._pair(3, 2, kernel_size)
+        variables = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+        want = np.asarray(jmod.apply(variables, jnp.asarray(x)))
+        load_jax_params(tmod, jax.device_get(variables["params"]))
+        got = tmod(torch.from_numpy(x)).detach().numpy()
+        assert got.shape == want.shape == (2, 6, 5, 2)  # k=3 -> pad 1, k=1 -> pad 0
+        np.testing.assert_allclose(got, want, atol=1e-5)
+
+    def test_bf16_cast_points_match_jax(self):
+        # both cast operands to bf16, add the bias in f32 and round once more;
+        # the conv sums may round differently: 2 bf16 ulps of max|ref|
+        x = _np(np.random.default_rng(5), 2, 8, 8, 4)
+        jmod, tmod = self._pair(4, 8, 3, dtype=torch.bfloat16)
+        variables = jmod.init(jax.random.PRNGKey(2), jnp.asarray(x))
+        want = np.asarray(jmod.apply(variables, jnp.asarray(x)).astype(jnp.float32))
+        load_jax_params(tmod, jax.device_get(variables["params"]))
+        got = tmod(torch.from_numpy(x))
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.float().detach().numpy() - want).max()
+        assert err <= 2 * 2.0 ** -8 * np.abs(want).max()
+
+    def test_conv_seq_chain_is_its_layers_in_order(self):
+        x = torch.from_numpy(_np(np.random.default_rng(6), 2, 7, 6, 3))
+        seq = ops.ConvSeq(3, 4, 3, generator=torch.Generator().manual_seed(0))
+        want = x
+        with torch.inference_mode():
+            for layer in seq.children():
+                want = torch.relu(layer.conv(want))
+            torch.testing.assert_close(seq(x), want)
+
+    def test_pack_kernel_layout(self):
+        k = torch.from_numpy(_np(np.random.default_rng(7), 37, 5, 3, 3))
+        w = pack_kernel(k, torch.bfloat16)
+        # C_out 37 -> 64, C_in 5 -> 16, zero past both
+        assert w.shape == (64, 3, 3, 16) and w.dtype == torch.bfloat16 and w.is_contiguous()
+        assert torch.equal(w[:37, :, :, :5], k.permute(0, 2, 3, 1).to(torch.bfloat16))
+        assert not w[37:].any() and not w[:, :, :, 5:].any()
+
+    def test_conv_seq_packs_once_per_parameter_version(self):
+        seq = ops.ConvSeq(3, 4, 2, generator=torch.Generator().manual_seed(0))
+        weights = [m.conv.weight for m in seq.children()]
+        first = seq._packed_kernels(weights, torch.float32)
+        assert seq._packed_kernels(weights, torch.float32) is first
+        bf16 = seq._packed_kernels(weights, torch.bfloat16)
+        assert bf16 is not first
+        seq.load_state_dict({k: v + 1 for k, v in seq.state_dict().items()})
+        repacked = seq._packed_kernels(weights, torch.bfloat16)
+        assert repacked is not bf16
+        assert torch.equal(repacked[0], pack_kernel(weights[0], torch.bfloat16))
+
+
+class TestInit:
+    # OIHW for the port, HWIO for JAX: the same fan_in of 8 * 3 * 3 = 72
+    OIHW = (256, 8, 3, 3)
+    HWIO = (3, 3, 8, 256)
+
+    def _port(self, fn, shape=OIHW):
+        out = fn(shape, torch.Generator().manual_seed(0))
+        assert tuple(out.shape) == shape and out.dtype == torch.float32
+        return out.numpy()
+
+    def _jax(self, fn, shape=HWIO):
+        return np.asarray(fn(jax.random.PRNGKey(0), shape))
+
+    def test_he_normal(self):
+        got, want = self._port(tinit.kaiming_normal_fan_in), self._jax(jinit.kaiming_normal_fan_in)
+        std = np.sqrt(2.0 / 72)
+        # 18432 draws: the sample std is within ~0.5% of the true one
+        assert abs(got.std() / std - 1) < 0.03 and abs(want.std() / std - 1) < 0.03
+        assert abs(got.mean()) < 0.05 * std
+
+    def test_truncated_normal_bias(self):
+        got = self._port(tinit.truncated_normal_std(1e-3), (8192,))
+        want = self._jax(jinit.truncated_normal_std(1e-3), (8192,))
+        assert np.abs(got).max() <= 2e-3 and np.abs(want).max() <= 2e-3
+        # std of a standard normal truncated at +-2 is 0.8796
+        assert abs(got.std() / 0.8796e-3 - 1) < 0.05 and abs(want.std() / 0.8796e-3 - 1) < 0.05
+
+    def test_torch_default_kernel_and_bias(self):
+        bound = 1 / np.sqrt(72)
+        for got, want in [
+            (self._port(tinit.torch_default_conv_kernel), self._jax(jinit.torch_default_conv_kernel)),
+            (self._port(tinit.torch_default_conv_bias(72), (8192,)),
+             self._jax(jinit.torch_default_conv_bias(72), (8192,))),
+        ]:
+            assert np.abs(got).max() <= bound and np.abs(want).max() <= bound
+            assert abs(got.std() / (bound / np.sqrt(3)) - 1) < 0.05
+            assert abs(want.std() / (bound / np.sqrt(3)) - 1) < 0.05
+
+    def test_orthogonal(self):
+        got = self._port(tinit.orthogonal_kernel, (16, 8, 3, 3)).reshape(16, 72)
+        want = self._jax(jinit.orthogonal_kernel, (3, 3, 8, 16)).reshape(72, 16)
+        np.testing.assert_allclose(got @ got.T, np.eye(16), atol=1e-5)
+        np.testing.assert_allclose(want.T @ want, np.eye(16), atol=1e-5)
+
+    def test_same_seed_same_draws(self):
+        a = tinit.kaiming_normal_fan_in((4, 3, 3, 3), torch.Generator().manual_seed(7))
+        b = tinit.kaiming_normal_fan_in((4, 3, 3, 3), torch.Generator().manual_seed(7))
+        assert torch.equal(a, b)

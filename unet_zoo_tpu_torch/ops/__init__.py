@@ -1,0 +1,27 @@
+"""Op library of the PyTorch port: conv blocks, pooling, resizing,
+initializers. NHWC at every public function, as in ``unet_zoo_tpu.ops``."""
+
+from unet_zoo_tpu_torch.ops.init import (
+    kaiming_normal_fan_in,
+    truncated_normal_std,
+    torch_default_conv_kernel,
+    torch_default_conv_bias,
+    orthogonal_kernel,
+)
+from unet_zoo_tpu_torch.ops.conv import Conv, ConvBNAct, ConvSeq
+from unet_zoo_tpu_torch.ops.pool import avg_pool_ceil
+from unet_zoo_tpu_torch.ops.resize import resize_linear, upsample_nearest
+
+__all__ = [
+    "kaiming_normal_fan_in",
+    "truncated_normal_std",
+    "torch_default_conv_kernel",
+    "torch_default_conv_bias",
+    "orthogonal_kernel",
+    "Conv",
+    "ConvBNAct",
+    "ConvSeq",
+    "avg_pool_ceil",
+    "resize_linear",
+    "upsample_nearest",
+]

@@ -1,0 +1,152 @@
+"""Fused chain of 3x3 'same' convolutions, each followed by bias and ReLU.
+
+The twin of ``unet_zoo_tpu.ops.pallas.conv_chain.fused_conv_chain``: for N
+NHWC stages it computes ``relu(conv3x3(... relu(conv3x3(x, K0) + b0) ...) +
+b_{N-1})`` with zero padding, f32 accumulation, the bias added in f32, and
+each stage's result stored in ``x.dtype``. Weights are cast to ``x.dtype``.
+
+On CUDA tensors every stage is one launch of the hand-written kernel in
+``csrc/conv_chain.cu`` (see the note at its top for the design). On CPU
+tensors the wrapper runs ``fused_conv_chain_reference``, the plain PyTorch
+version, which is also the kernel's oracle on the card. In the port this
+chain *is* the BN-free U-Net block (``models/blocks.py``).
+
+Kernels are OIHW, the port's storage layout (``nn.Conv2d``'s), not the JAX
+package's HWIO.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from unet_zoo_tpu_torch.ops.pallas import _build
+
+# Number of kernel launches (one per stage on CUDA tensors). Callers reset it
+# by assignment; the CPU path never moves it.
+launches = 0
+
+# The kernels stream input channels in whole chunks of 16 and write output
+# channels in tiles of up to 64, so ``pack_kernel`` zero-pads the weights to both.
+_CI_ALIGN = 16
+_CO_ALIGN = 64
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> None:
+    if x.ndim != 4 or x.numel() == 0:
+        raise ValueError(f"x must be a non-empty NHWC tensor, got shape {tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not kernels or len(kernels) != len(biases):
+        raise ValueError(f"need one bias per kernel and at least one stage, got "
+                         f"{len(kernels)} kernels and {len(biases)} biases")
+    c = x.shape[-1]
+    for j, (k, b) in enumerate(zip(kernels, biases)):
+        if k.ndim != 4 or tuple(k.shape[1:]) != (c, 3, 3):
+            raise ValueError(f"stage {j}: kernel must be OIHW (C_out, {c}, 3, 3), got {tuple(k.shape)}")
+        if tuple(b.shape) != (k.shape[0],):
+            raise ValueError(f"stage {j}: bias must be ({k.shape[0]},), got {tuple(b.shape)}")
+        if k.device != x.device or b.device != x.device:
+            raise ValueError(f"stage {j}: kernel and bias must be on {x.device}")
+        c = k.shape[0]
+
+
+def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, padding: int) -> torch.Tensor:
+    """One conv with the JAX package's cast points (``unet_zoo_tpu/ops/conv.py``):
+    ``F.conv2d`` in ``x.dtype``, the bias added in f32, the result cast back
+    to ``x.dtype``. NHWC in and out, OIHW weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=padding).permute(0, 2, 3, 1)
+    return (y.float() + bias.float()).to(x.dtype)
+
+
+def fused_conv_chain_reference(x, kernels, biases):
+    """Plain PyTorch version: ``conv2d_nhwc`` then ReLU, per stage."""
+    for k, b in zip(kernels, biases):
+        x = torch.relu(conv2d_nhwc(x, k, b, padding=1))
+    return x
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load()
+    lib.conv3x3_bias_relu.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.conv3x3_bias_relu.restype = ctypes.c_int
+    lib.conv_chain_error_string.argtypes = [ctypes.c_int]
+    lib.conv_chain_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW kernel -> the CUDA kernel's weight layout: (C_out rounded up to 64,
+    3, 3, C_in rounded up to 16) in ``dtype``, zero past C_out and C_in, so
+    that for each output channel the 9 taps' input channels lie contiguous,
+    as the kernel streams them."""
+    co, ci = kernel.shape[:2]
+    w = torch.zeros((_round_up(co, _CO_ALIGN), 3, 3, _round_up(ci, _CI_ALIGN)),
+                    dtype=dtype, device=kernel.device)
+    w[:co, :, :, :ci] = kernel.permute(0, 2, 3, 1)
+    return w
+
+
+def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    global launches
+    lib = _lib()
+    batch, height, width, ci = x.shape
+    co = bias.shape[0]
+    b = bias.to(torch.float32).contiguous()
+    out = torch.empty((batch, height, width, co), dtype=x.dtype, device=x.device)
+    err = lib.conv3x3_bias_relu(
+        x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(),
+        batch, height, width, ci, packed.shape[-1], co, _DTYPE_CODES[x.dtype], x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            f"conv3x3 kernel launch failed for x {tuple(x.shape)} -> {co} channels: "
+            f"{lib.conv_chain_error_string(err).decode()}"
+        )
+    launches += 1
+    return out
+
+
+def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                     biases: Sequence[torch.Tensor], relu_last: bool = True,
+                     packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """x: (B, H, W, C0) NHWC, float32 or bfloat16. kernels[j]: (C_{j+1}, C_j, 3, 3)
+    OIHW; biases[j]: (C_{j+1},). Returns (B, H, W, C_N) in ``x.dtype``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel once
+    per stage, or raise. ``packed`` optionally gives ``pack_kernel(k, x.dtype)``
+    of each kernel, for a caller that keeps them across calls; without it the
+    kernels are packed on every call. The CPU path ignores it.
+    """
+    if not relu_last:
+        raise NotImplementedError("non-ReLU last stage not implemented (nor in the JAX kernel)")
+    _check(x, kernels, biases)
+    if x.device.type == "cpu":
+        return fused_conv_chain_reference(x, kernels, biases)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_chain runs on CPU or CUDA tensors, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("x must be a contiguous NHWC tensor")
+    if packed is None:
+        packed = [pack_kernel(k, x.dtype) for k in kernels]
+    if len(packed) != len(kernels):
+        raise ValueError(f"need one packed kernel per stage, got {len(packed)} for {len(kernels)} stages")
+    for j, (k, w) in enumerate(zip(kernels, packed)):
+        want = (_round_up(k.shape[0], _CO_ALIGN), 3, 3, _round_up(k.shape[1], _CI_ALIGN))
+        if tuple(w.shape) != want or w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
+            raise ValueError(f"stage {j}: packed kernel must be contiguous {want} {x.dtype} on "
+                             f"{x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
+    for w, b in zip(packed, biases):
+        x = _launch_stage(x, w, b)
+    return x
