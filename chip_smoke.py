@@ -18,7 +18,18 @@ Phases, each printing its own lines:
    path's bf16 logits of two images against that f32 CPU model;
 4. each block at batch 512 on the model's weights: the kernel against its
    plain version, then times with CUDA events: the forward's images/s and
-   each block's kernel time beside its plain version's.
+   each block's kernel time beside its plain version's;
+5. the train slice: the chain's autograd Function (kernel forward, library
+   conv gradients) against autograd of the plain version at the test and
+   edge shapes in float32; the full-width train step (bf16, batch 64,
+   128x128x1, the ``unet`` experiment's device augmentation, coupled-L2 Adam,
+   plateau LR) for TRAIN_STEPS steps from a fixed seed, with 21 launches a
+   step, no host sync inside a step, a finite loss, a non-zero gradient in
+   every conv weight and bias, and a falling loss; the kernel path against
+   the plain path for PARITY_STEPS steps from the same state and the same
+   augmentation draws; then train-step images/s on both paths, the host's
+   time to issue one step on each, and the milliseconds of each phase of a
+   step.
 
 Then a JSON line of the kernels, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -27,6 +38,7 @@ exit code is non-zero; without a GPU the script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -81,6 +93,22 @@ BF16_FORWARD_ULPS = 4
 # In each image, rms(d_got - d_want) <= D_RTOL * std(d_want) over the batch
 # (0.018 measured for bf16 against f32 on the CPU plain path)
 D_RTOL = 0.05
+# the forward's images/s over the kernel's first six runs (PERF.md) on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside each new reading
+FIRST_FORWARD_IMAGES_S = (14706.3, 14855.4)
+
+# phase 5: the train step
+TRAIN_BATCH = 64
+TRAIN_STEPS = 30  # the counted main-path run; the loss must fall over it
+PARITY_STEPS = 3  # kernel path vs plain path
+TIME_STEPS = 10  # steps a timed round; 2 rounds, each after a warm-up step
+# bf16 train step, kernel path vs plain path from the same state and draws:
+# the forwards differ by the kernel's single rounding a stage (1 bf16 ulp at
+# a few elements), which the backward carries through 22 convs
+# (on an H100: loss 1.9e-5, 2.5e-4, 6.7e-4 over 3 steps, as Adam carries
+# the step-1 differences on; step-1 gradients 2.4e-2 of max|grad|)
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GRAD_RTOL_OF_MAX = 0.06
 
 
 def log(msg: str) -> None:
@@ -145,15 +173,21 @@ def logits_agree(got, want, label):
     check(worst <= D_RTOL, f"{label}: logit difference off by {worst} of its spread")
 
 
-def plain_path(model, x):
-    """``model(x)`` with every block on the conv chain's plain version."""
+def plain_chain():
+    """Context in which every U-Net block runs the conv chain's plain version
+    (differentiable by autograd) in place of the kernel."""
     from unet_zoo_tpu_torch.ops import conv
     from unet_zoo_tpu_torch.ops.pallas import conv_chain
 
     def plain(x, ks, bs, packed=None):
         return conv_chain.fused_conv_chain_reference(x, ks, bs)
 
-    with mock.patch.object(conv, "fused_conv_chain", plain):
+    return mock.patch.object(conv, "fused_conv_chain", plain)
+
+
+def plain_path(model, x):
+    """``model(x)`` with every block on the conv chain's plain version."""
+    with plain_chain():
         return model(x)
 
 
@@ -178,6 +212,168 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def function_grads_agree(conv_chain, dev, gen) -> float:
+    """The chain's autograd Function on the card against autograd of the
+    plain version, float32 with TF32 off: each input, kernel and bias
+    gradient within F32_RTOL of its max|grad|."""
+    worst = 0.0
+    for shape, chans in TEST_SHAPES + EDGE_SHAPES:
+        x = torch.randn(shape, generator=gen).to(dev).requires_grad_()
+        ks, bs = chain_weights(chans, gen, dev, scale=0.2 if (shape, chans) in TEST_SHAPES else None)
+        leaves = [x, *(t.requires_grad_() for t in ks), *(t.requires_grad_() for t in bs)]
+        g = torch.randn((*shape[:3], chans[-1][1]), generator=gen).to(dev)
+        before = conv_chain.launches
+        out = conv_chain.fused_conv_chain(x, ks, bs)
+        check(conv_chain.launches == before + len(chans), f"{shape}: {conv_chain.launches - before} launches")
+        check(type(out.grad_fn).__name__.startswith("FusedConvChain"), f"grad_fn {out.grad_fn}")
+        got = torch.autograd.grad((out * g).sum(), leaves)
+        want = torch.autograd.grad((conv_chain.fused_conv_chain_reference(x, ks, bs) * g).sum(), leaves)
+        torch.cuda.synchronize()
+        for name, a, b in zip(["x"] + [f"k{j}" for j in range(len(ks))] + [f"b{j}" for j in range(len(bs))],
+                              got, want):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            check(scale > 0 and err <= F32_RTOL * scale, f"{shape} {chans} grad {name}: {err} vs max {scale}")
+            worst = max(worst, err / scale)
+        log(f"[train] f32 Function backward {shape} {chans}: grads of x, kernels, biases agree with "
+            f"the plain version's autograd")
+    log(f"[train] f32 Function backward: worst max|diff|/max|grad| {worst:.3e} (tol {F32_RTOL})")
+    return worst
+
+
+def train_batches(n: int, dev):
+    """n batches of (TRAIN_BATCH, IMAGE, IMAGE, 1) noise from a fixed seed,
+    labelled where a 9x9 box blur of the image is positive: a map a U-Net
+    can learn, so the loss can fall."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((n * TRAIN_BATCH, 1, IMAGE, IMAGE), generator=gen, device=dev)
+    y = torch.nn.functional.avg_pool2d(x, 9, 1, 4) > 0
+    return (x.view(n, TRAIN_BATCH, IMAGE, IMAGE, 1), y.view(n, TRAIN_BATCH, IMAGE, IMAGE).long())
+
+
+def train_slice(conv_chain, dev, card: str) -> dict:
+    from unet_zoo_tpu_torch.data.augment import sample_augment_params
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment("unet"), dtype="bfloat16")
+    opts = cfg.augmentation_options
+    xs, ys = train_batches(TRAIN_STEPS, dev)
+    trainer = Trainer(cfg, dev, seed=0)
+    params = dict(trainer.state.model.named_parameters())
+    per_step = len(BLOCKS) * STAGES_PER_BLOCK
+
+    # the counted main-path run: TRAIN_STEPS steps
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    check(conv_chain.launches == per_step, f"first train step launched {conv_chain.launches}, expected {per_step}")
+    # every conv weight and bias has a gradient, and none is all zero
+    convs = [n for n in params if n != "last.weight" and n != "last.bias"]
+    dead = [n for n, p in params.items() if p.grad is None or not bool(p.grad.ne(0).any())]
+    check(not dead, f"no gradient in {dead}")
+    log(f"[train] step 1: {per_step} kernel launches; non-zero gradients in all {len(params)} parameters "
+        f"({len(convs) // 2} block convs + the 1x1 last conv, weight and bias each)")
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
+    for i in range(1, TRAIN_STEPS):
+        losses.append(trainer.train_step(xs[i], ys[i])["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = conv_chain.launches
+    check(launched == TRAIN_STEPS * per_step, f"{TRAIN_STEPS} train steps launched {launched}")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses.tolist()}")
+    tail = losses[-5:].mean().item()
+    log(f"[train] {TRAIN_STEPS} steps bs{TRAIN_BATCH} {IMAGE}x{IMAGE} bf16, device augmentation: "
+        f"{launched} kernel launches (expected {TRAIN_STEPS * per_step}), no host sync inside a step; "
+        f"loss {losses[0]:.4f} -> mean of the last 5 {tail:.4f}; lr {trainer.state.sched.lr.item():.2e}")
+    log(f"[train] losses: {' '.join(f'{v:.4f}' for v in losses.tolist())}")
+    check(tail < losses[0].item(), f"loss did not fall: {losses[0]:.4f} -> {tail:.4f}")
+
+    # the kernel path against the plain path from the same state and draws
+    kern, plain = Trainer(cfg, dev, seed=1), Trainer(cfg, dev, seed=1)
+    aug_gen = torch.Generator(device=dev).manual_seed(4)
+    for i in range(PARITY_STEPS):
+        draws = sample_augment_params(aug_gen, TRAIN_BATCH, (IMAGE, IMAGE), opts, dev)
+        lk = kern.train_step(xs[i], ys[i], draws)["loss"].item()
+        with plain_chain():
+            lp = plain.train_step(xs[i], ys[i], draws)["loss"].item()
+        rel = abs(lk - lp) / abs(lp)
+        log(f"[train] step {i + 1}, kernel vs plain path: loss {lk:.6f} vs {lp:.6f}, rel diff {rel:.2e} "
+            f"(tol {TRAIN_LOSS_RTOL})")
+        check(rel <= TRAIN_LOSS_RTOL, f"step {i + 1} loss: kernel {lk} vs plain {lp}")
+        if i == 0:
+            worst, worst_rms = 0.0, 0.0
+            for (name, pk), pp in zip(kern.state.model.named_parameters(), plain.state.model.parameters()):
+                a, b = pk.grad.float(), pp.grad.float()
+                scale = b.abs().max().item()
+                err = (a - b).abs().max().item() / scale
+                rms = ((a - b).norm() / b.norm()).item()
+                worst, worst_rms = max(worst, err), max(worst_rms, rms)
+                check(err <= TRAIN_GRAD_RTOL_OF_MAX, f"step 1 grad {name}: max|diff| {err:.3e} of max|grad|")
+            log(f"[train] step 1 gradients, kernel vs plain path, worst over the {len(params)} tensors: "
+                f"max|diff|/max|grad| {worst:.3e} (tol {TRAIN_GRAD_RTOL_OF_MAX}), |diff|/|grad| {worst_rms:.3e}")
+    # weights one step stale would move a step's loss by what one update
+    # moves it on a fixed batch; the loss gate must be able to see that
+    with torch.no_grad():
+        moved = abs(kern.forward_loss(*kern.augment(xs[i], ys[i], draws))[0].item() - lk) / lk
+    log(f"[train] one update moves the step-{PARITY_STEPS} loss by {moved:.2e} relative on its own batch: "
+        f"{moved / TRAIN_LOSS_RTOL:.1f}x the loss tolerance, so stale packed weights would fail the gate")
+    check(moved > 2 * TRAIN_LOSS_RTOL, f"one update moves the loss by only {moved:.2e}")
+    del kern, plain
+
+    # times: CUDA events after a warm-up step, the min of 2 rounds of TIME_STEPS steps
+    def step_ms(tr) -> float:
+        return min(cuda_ms(lambda: tr.train_step(xs[0], ys[0]), TIME_STEPS) for _ in range(2))
+
+    def host_ms(tr) -> float:
+        # the step makes no host sync, so from an idle device the call
+        # returns once every launch is queued: the host's time to issue it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(xs[0], ys[0])
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3
+
+    kernel_ms = step_ms(trainer)
+    with plain_chain():
+        plain_trainer = Trainer(cfg, dev, seed=0)
+        plain_ms = step_ms(plain_trainer)
+    # alternating the paths, so that both meet the same host
+    kernel_hosts, plain_hosts = [], []
+    for _ in range(TIME_STEPS):
+        kernel_hosts.append(host_ms(trainer))
+        with plain_chain():
+            plain_hosts.append(host_ms(plain_trainer))
+    kernel_host, plain_host = min(kernel_hosts), min(plain_hosts)
+    log(f"[time] train step bs{TRAIN_BATCH} {IMAGE}x{IMAGE} bf16 with device augmentation: kernel path "
+        f"{kernel_ms:.3f} ms, {TRAIN_BATCH / kernel_ms * 1e3:.1f} images/s; plain path {plain_ms:.3f} ms, "
+        f"{TRAIN_BATCH / plain_ms * 1e3:.1f} images/s | card: {card}")
+    log(f"[time] host time to issue one train step onto an idle device, min / median of {TIME_STEPS}: "
+        f"kernel path {kernel_host:.3f} / {sorted(kernel_hosts)[TIME_STEPS // 2]:.3f} ms, plain path "
+        f"{plain_host:.3f} / {sorted(plain_hosts)[TIME_STEPS // 2]:.3f} ms; where it reaches the step "
+        f"time, the host sets the pace | card: {card}")
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(TIME_STEPS)]
+    for ev in events:
+        ev[0].record()
+        x, y = trainer.augment(xs[0], ys[0])
+        ev[1].record()
+        loss, _ = trainer.forward_loss(x, y)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update(loss)
+        ev[4].record()
+    torch.cuda.synchronize()
+    phases = [sum(ev[k].elapsed_time(ev[k + 1]) for ev in events) / TIME_STEPS for k in range(4)]
+    log(f"[time] train step phases, kernel path, ms/step: augmentation {phases[0]:.3f}, forward+loss "
+        f"{phases[1]:.3f}, backward {phases[2]:.3f}, optimizer+plateau {phases[3]:.3f} | card: {card}")
+    return {"launches": launched, "ms": kernel_ms, "plain_ms": plain_ms,
+            "host_ms": kernel_host, "plain_host_ms": plain_host}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -198,6 +394,7 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | card: {card}")
     log(f"[env] kernel build+load {build_s:.2f} s -> {os.path.relpath(_build.library_path(), REPO)}")
+    log(f"[env] host: {os.cpu_count()} CPUs, load average {os.getloadavg()[0]:.2f} over the last minute")
     build_log = _build.library_path().with_suffix(".log")
     if build_log.exists():
         for line in build_log.read_text().splitlines():
@@ -281,7 +478,8 @@ def main() -> int:
     with torch.inference_mode():
         fwd_ms = min(cuda_ms(lambda: model(xs[0]), 5) for _ in range(2))
     log(f"[time] U-Net forward bs{BATCH} {IMAGE}x{IMAGE} bf16: {fwd_ms:.3f} ms/batch, "
-        f"{BATCH / fwd_ms * 1e3:.1f} images/s | card: {card}")
+        f"{BATCH / fwd_ms * 1e3:.1f} images/s (first runs: {FIRST_FORWARD_IMAGES_S[0]}-{FIRST_FORWARD_IMAGES_S[1]} "
+        f"on an NVIDIA H100 80GB HBM3 at 700 W) | card: {card}")
     kernel_total = plain_total = cudnn_total = 0.0
     with torch.inference_mode():
         for block, size, ci, co in BLOCKS:
@@ -306,6 +504,12 @@ def main() -> int:
             del x
     log(f"[time] 7 blocks: kernel {kernel_total:.3f} ms, plain {plain_total:.3f} ms, "
         f"cuDNN conv+bias+ReLU {cudnn_total:.3f} ms | card: {card}")
+    del model, xs
+    torch.cuda.empty_cache()
+
+    # 5. the train slice
+    backward_err = function_grads_agree(conv_chain, dev, gen)
+    train = train_slice(conv_chain, dev, card)
 
     log(json.dumps({"kernels": [{
         "name": "fused_conv_chain",
@@ -316,6 +520,12 @@ def main() -> int:
         "max_abs_err": bf16_block_err,
         "ms": kernel_total,
         "plain_ms": plain_total,
+        "train_launches": train["launches"],
+        "backward_f32_max_err_of_max_grad": backward_err,
+        "train_step_ms": train["ms"],
+        "train_step_plain_ms": train["plain_ms"],
+        "train_step_host_ms": train["host_ms"],
+        "train_step_plain_host_ms": train["plain_host_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,183 @@
+"""The port's 2D device augmentation against the JAX package's.
+
+``jax_draws`` reproduces the draws of the JAX ``augment_batch_2d`` for a key
+(``split(key, B)``, then ``split(k, 8)`` per image, ``data/augment.py``) and
+hands them to the port's ``warp_batch_2d``; the JAX side warps at
+``warp_precision="highest"``, exact f32, as the port's gather is.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unet_zoo_tpu.data.augment import AugmentOptions as JaxAugmentOptions
+from unet_zoo_tpu.data.augment import augment_batch_2d as jax_augment_batch_2d
+from unet_zoo_tpu_torch.data import augment
+from unet_zoo_tpu_torch.data.augment import (
+    AugmentOptions,
+    AugmentParams,
+    augment_batch_2d,
+    sample_augment_params,
+    warp_batch_2d,
+)
+
+# the image: both sides compute the same f32 coordinates, up to the last bit
+# of sin/cos, and interpolate in the same order
+IMAGE_ATOL = 1e-5
+# labels: exact wherever the two largest warped one-hot channels differ by
+# more than LABEL_TIE; near a tie the argmax may go either way
+LABEL_TIE = 1e-5
+LABEL_AGREEMENT = 0.999
+
+
+def jax_draws(key, batch, size, opts) -> AugmentParams:
+    """The draws the JAX ``augment_batch_2d(key, ...)`` makes, as the port's
+    ``AugmentParams`` (raw, before the JAX package gates them: the gate-off
+    images do not use them)."""
+    nh, nw = size
+    p_flip = max(2, opts.augment_every_nth)
+
+    def one(k):
+        k_gate, k_rot, k_r, k_py, k_px, _, k_lr, k_ud = jax.random.split(k, 8)
+        r = jax.random.randint(k_r, (), nh - opts.offset, nh + 1)
+        return (jax.random.randint(k_gate, (), 0, opts.augment_every_nth) == 0,
+                jax.random.uniform(k_rot, (), minval=-opts.rot_degrees, maxval=opts.rot_degrees),
+                r,
+                jax.random.randint(k_py, (), 0, nh - r + 1),
+                jax.random.randint(k_px, (), 0, nw - r + 1),
+                jax.random.randint(k_lr, (), 0, p_flip) == 0,
+                jax.random.randint(k_ud, (), 0, p_flip) == 0)
+
+    gate, angle, r, off_r, off_c, flip_lr, flip_ud = (
+        torch.from_numpy(np.array(d)) for d in jax.vmap(one)(jax.random.split(key, batch)))
+    return AugmentParams(gate, angle, r.long(), off_r.long(), off_c.long(), flip_lr, flip_ud)
+
+
+def jax_options(opts: AugmentOptions) -> JaxAugmentOptions:
+    return JaxAugmentOptions(**dataclasses.asdict(opts), warp_precision="highest")
+
+
+def _batch(batch, size, channels, nlabels, seed):
+    """Smooth images and blob labels, so that the warp moves real edges."""
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((batch, size + 4, size + 4, channels)).astype(np.float32)
+    x = sum(noise[:, i:i + size, j:j + size] for i in range(5) for j in range(5)) / 5
+    y = np.digitize(x[..., 0], np.quantile(x[..., 0], np.linspace(0, 1, nlabels + 1)[1:-1]))
+    return x.astype(np.float32), y.astype(np.int32)
+
+
+def _port(x, y, params, opts):
+    out = warp_batch_2d(torch.from_numpy(x), torch.from_numpy(y), params, opts)
+    return out[0].numpy(), out[1].numpy()
+
+
+LIDC = AugmentOptions(do_rotations=True, do_scaleaug=True, do_fliplr=True, do_flipud=True, nlabels=2)
+
+
+@pytest.mark.parametrize("channels,nlabels", [(1, 2), (3, 4)])
+def test_warp_matches_jax_with_injected_draws(channels, nlabels):
+    opts = dataclasses.replace(LIDC, nlabels=nlabels)
+    x, y = _batch(16, 32, channels, nlabels, seed=nlabels)
+    key = jax.random.PRNGKey(nlabels)
+    params = jax_draws(key, 16, (32, 32), opts)
+    want_x, want_y = (np.asarray(a) for a in jax_augment_batch_2d(key, jnp.asarray(x), jnp.asarray(y),
+                                                                 jax_options(opts)))
+    got_x, got_y = _port(x, y, params, opts)
+    assert got_x.dtype == x.dtype and got_y.dtype == y.dtype
+    assert got_x.shape == x.shape and got_y.shape == y.shape
+    assert params.gate.any() and not params.gate.all()  # both kinds of image are exercised
+    np.testing.assert_allclose(got_x, want_x, atol=IMAGE_ATOL)
+
+    # the label margin of the port's warp, before the flips
+    rows, cols = augment._source_coords(params, (32, 32), opts)
+    onehot = torch.nn.functional.one_hot(torch.from_numpy(y).long(), nlabels).float()
+    top2 = augment._gather_bilinear(onehot, rows, cols).topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    for b in range(16):  # flip the margin as the labels were flipped
+        if params.flip_lr[b]:
+            margin[b] = margin[b, :, ::-1]
+        if params.flip_ud[b]:
+            margin[b] = margin[b, ::-1]
+    gate = params.gate.numpy()
+    clear = (margin > LABEL_TIE) | ~gate[:, None, None]
+    assert clear.mean() > 0.9
+    np.testing.assert_array_equal(got_y[clear], want_y[clear])
+    assert (got_y == want_y).mean() >= LABEL_AGREEMENT
+
+    # gate-off images: the input, bit-exact on both sides, flipped exactly
+    for b in np.flatnonzero(~gate):
+        img, lbl = x[b], y[b]
+        if params.flip_lr[b]:
+            img, lbl = img[:, ::-1], lbl[:, ::-1]
+        if params.flip_ud[b]:
+            img, lbl = img[::-1], lbl[::-1]
+        for out_x, out_y in ((got_x, got_y), (want_x, want_y)):
+            np.testing.assert_array_equal(out_x[b], img)
+            np.testing.assert_array_equal(out_y[b], lbl)
+
+
+def test_flips_alone_are_bit_exact():
+    opts = AugmentOptions(do_fliplr=True, do_flipud=True, nlabels=2)
+    x, y = _batch(16, 24, 2, 2, seed=7)
+    key = jax.random.PRNGKey(7)
+    params = jax_draws(key, 16, (24, 24), opts)
+    want = jax_augment_batch_2d(key, jnp.asarray(x), jnp.asarray(y), jax_options(opts))
+    got = _port(x, y, params, opts)
+    assert params.flip_lr.any() and params.flip_ud.any()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_no_options_pass_through():
+    x, y = _batch(4, 16, 1, 2, seed=8)
+    params = sample_augment_params(torch.Generator().manual_seed(0), 4, (16, 16), AugmentOptions())
+    got = _port(x, y, params, AugmentOptions())
+    np.testing.assert_array_equal(got[0], x)
+    np.testing.assert_array_equal(got[1], y)
+
+
+def test_sampled_params_follow_the_jax_ranges():
+    opts = dataclasses.replace(LIDC, augment_every_nth=3, rot_degrees=15.0, offset=20)
+    p = sample_augment_params(torch.Generator().manual_seed(0), 20000, (48, 64), opts)
+    assert all(t.shape == (20000,) for t in p)
+    assert p.gate.dtype == p.flip_lr.dtype == p.flip_ud.dtype == torch.bool
+    assert abs(p.gate.float().mean().item() - 1 / 3) < 0.02
+    assert abs(p.flip_lr.float().mean().item() - 1 / 3) < 0.02  # 1/max(2, every_nth)
+    assert abs(p.flip_ud.float().mean().item() - 1 / 3) < 0.02
+    assert p.angle.abs().max().item() <= 15.0 and abs(p.angle.mean().item()) < 0.5
+    assert p.r.min().item() == 28 and p.r.max().item() == 48  # U{n - offset .. n}, n = H
+    for off, n in ((p.off_r, 48), (p.off_c, 64)):  # U{0 .. n - r}, each with its own r
+        assert (off >= 0).all() and (off <= n - p.r).all()
+        assert (off == 0).any() and (off == n - p.r).any()
+    again = sample_augment_params(torch.Generator().manual_seed(0), 20000, (48, 64), opts)
+    assert all(torch.equal(a, b) for a, b in zip(p, again))
+
+
+def test_augment_batch_is_sample_then_warp():
+    x, y = (torch.from_numpy(a) for a in _batch(4, 32, 1, 2, seed=9))
+    got = augment_batch_2d(torch.Generator().manual_seed(3), x, y, LIDC)
+    params = sample_augment_params(torch.Generator().manual_seed(3), 4, (32, 32), LIDC)
+    want = warp_batch_2d(x, y, params, LIDC)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_options_from_dict_match_jax():
+    d = {"do_rotations": True, "do_scaleaug": True, "do_flip_lr": True, "do_flipud": True,
+         "rot_degrees": 12.0, "offset": 10, "augment_every_nth": 3, "sigma": 5.0}
+    got = dataclasses.asdict(AugmentOptions.from_dict(d, nlabels=3))
+    want = dataclasses.asdict(JaxAugmentOptions.from_dict(d, nlabels=3))
+    assert want.pop("warp_precision") == "high"
+    assert got == want
+    assert AugmentOptions.from_dict(None, 4) == AugmentOptions(nlabels=4)
+
+
+@pytest.mark.parametrize("change", [{"do_elasticaug": True}, {"label_interp": "nearest"}, {"nlabels": 5}])
+def test_unported_options_raise(change):
+    opts = dataclasses.replace(LIDC, **change)
+    x, y = torch.zeros(1, 8, 8, 1), torch.zeros(1, 8, 8, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        augment_batch_2d(torch.Generator(), x, y, opts)

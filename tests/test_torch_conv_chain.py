@@ -120,3 +120,107 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         x, ks, bs = x.to("meta"), [k.to("meta") for k in ks], [b.to("meta") for b in bs]
     with pytest.raises(expected):
         fused_conv_chain(x, ks, bs, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# FusedConvChain: the CUDA path's backward, run here with each kernel launch
+# replaced by the plain stage under no_grad, so autograd cannot see through
+# the forward and the gradients are the Function's own
+# ---------------------------------------------------------------------------
+
+# f32: both sides take library conv gradients in f32, in other summation
+# orders (8.2e-7 of max|grad| at worst measured on the CPU)
+GRAD_F32_RTOL_OF_MAX = 1e-5
+# bf16: both round the cotangent into each conv and each conv's output to
+# bf16 at the same points; the sums may round differently: 2 bf16 ulps of
+# max|grad| (0 measured on the CPU)
+GRAD_BF16_RTOL_OF_MAX = 2 * 2.0 ** -8
+
+
+def _plain_stage(x, packed, bias):
+    kernel = packed[:bias.shape[0], :, :, :x.shape[-1]].permute(0, 3, 1, 2)
+    with torch.no_grad():
+        return torch.relu(conv_chain.conv2d_nhwc(x, kernel, bias, padding=1))
+
+
+def _jax_chain_grads(x, ks, bs, g, dtype):
+    """jax.grad of sum(chain(x) * g) for the chain of the JAX package's
+    BN-free ``ConvBNAct`` (the stages of its ``ConvSeq``, which the kernel
+    chain replaces; one per stage here, since the stages' widths differ),
+    with respect to x and the params."""
+    import jax
+
+    from unet_zoo_tpu.ops.conv import ConvBNAct as JaxConvBNAct
+
+    stages = [JaxConvBNAct(k.shape[-1], norm=False, dtype=dtype) for k in ks]
+
+    def f(x, params):
+        y = jnp.asarray(x, dtype)
+        for stage, p in zip(stages, params):
+            y = stage.apply({"params": {"conv": p}}, y, train=True)
+        return jnp.sum(y.astype(jnp.float32) * g)
+
+    params = [{"kernel": jnp.asarray(k), "bias": jnp.asarray(b)} for k, b in zip(ks, bs)]
+    gx, gp = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), params)
+    return (np.asarray(gx), [np.asarray(p["kernel"]).transpose(3, 2, 0, 1) for p in gp],
+            [np.asarray(p["bias"]) for p in gp])
+
+
+def _function_grads(x, ks, bs, g, dtype):
+    tx, tks, tbs = _torch_args(x, [k for k in ks], bs)
+    tx = tx.requires_grad_()
+    params = [t.requires_grad_() for kb in zip(tks, tbs) for t in kb]
+    packed = [conv_chain.pack_kernel(k, dtype) for k in tks]
+    out = conv_chain.FusedConvChain.apply(tx.to(dtype), packed, *params)
+    assert out.dtype == dtype
+    (out.float() * torch.from_numpy(g)).sum().backward()
+    assert all(p.grad.dtype == torch.float32 for p in params)
+    return tx.grad.numpy(), [k.grad.numpy() for k in tks], [b.grad.numpy() for b in tbs]
+
+
+def _assert_grads_close(got, want, rtol_of_max):
+    for name, g_list, w_list in zip(("x", "kernel", "bias"), got, want):
+        for j, (a, b) in enumerate(zip(*((g_list, w_list) if name != "x" else ([g_list], [w_list])))):
+            assert a.shape == b.shape, (name, j, a.shape, b.shape)
+            scale = np.abs(b).max()
+            assert scale > 0, (name, j)
+            err = np.abs(a - b).max()
+            assert err <= rtol_of_max * scale, (name, j, err, scale)
+
+
+@pytest.mark.parametrize("shape,chans", SHAPES)
+def test_function_backward_matches_jax_grad_f32(monkeypatch, shape, chans):
+    monkeypatch.setattr(conv_chain, "_launch_stage", _plain_stage)
+    x, ks, bs = _inputs(shape, chans, seed=2)
+    g = np.random.default_rng(3).standard_normal((*shape[:3], chans[-1][1])).astype(np.float32)
+    before = conv_chain.launches
+    got = _function_grads(x, ks, bs, g, torch.float32)
+    assert conv_chain.launches == before  # the backward launches no kernel
+    _assert_grads_close(got, _jax_chain_grads(x, ks, bs, g, jnp.float32), GRAD_F32_RTOL_OF_MAX)
+
+
+def test_function_backward_matches_jax_grad_bf16(monkeypatch):
+    monkeypatch.setattr(conv_chain, "_launch_stage", _plain_stage)
+    shape, chans = SHAPES[0]
+    x, ks, bs = _inputs(shape, chans, seed=4)
+    g = np.random.default_rng(5).standard_normal((*shape[:3], chans[-1][1])).astype(np.float32)
+    got = _function_grads(x, ks, bs, g, torch.bfloat16)
+    _assert_grads_close(got, _jax_chain_grads(x, ks, bs, g, jnp.bfloat16), GRAD_BF16_RTOL_OF_MAX)
+
+
+def test_function_matches_plain_autograd(monkeypatch):
+    """Same inputs through the Function and through autograd of the plain
+    version: equal gradients, and none for the packed weights."""
+    monkeypatch.setattr(conv_chain, "_launch_stage", _plain_stage)
+    x, ks, bs = _inputs(*SHAPES[3], seed=6)
+    tx, tks, tbs = _torch_args(x, ks, bs)
+    leaves = [tx, *tks, *tbs]
+    for t in leaves:
+        t.requires_grad_()
+    packed = [conv_chain.pack_kernel(k, torch.float32) for k in tks]
+    out = conv_chain.FusedConvChain.apply(tx, packed, *(t for kb in zip(tks, tbs) for t in kb))
+    got = torch.autograd.grad(out.square().sum(), leaves)
+    want = torch.autograd.grad(fused_conv_chain_reference(tx, tks, tbs).square().sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
+    assert not any(p.requires_grad for p in packed)

@@ -27,6 +27,18 @@ class TestPool:
         assert got.shape == want.shape
         np.testing.assert_allclose(got, want, atol=1e-6)
 
+    @pytest.mark.parametrize("shape", [(2, 8, 8, 3), (2, 7, 5, 3)])
+    def test_avg_pool_ceil_grad_matches_jax_vjp(self, shape):
+        """autograd of F.avg_pool2d against the JAX op's custom VJP (its
+        pre-transposed averaging matrices), edge windows of 1 included."""
+        rng = np.random.default_rng(10)
+        x = _np(rng, *shape)
+        y, vjp = jax.vjp(jops.avg_pool_ceil, jnp.asarray(x))
+        g = _np(rng, *y.shape)
+        tx = torch.from_numpy(x).requires_grad_()
+        ops.avg_pool_ceil(tx).backward(torch.from_numpy(g))
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-6)
+
     def test_rejects_non_nhwc(self):
         with pytest.raises(ValueError):
             ops.avg_pool_ceil(torch.zeros(2, 4, 4))
@@ -45,6 +57,25 @@ class TestResize:
         want = np.asarray(jops.resize_linear(jnp.asarray(x), out, align_corners=align))
         assert got.shape == want.shape == (shape[0], *out, shape[-1])
         np.testing.assert_allclose(got, want, atol=1e-5)
+
+    @pytest.mark.parametrize("align", [False, True])
+    @pytest.mark.parametrize("shape,out", [((2, 8, 8, 3), (16, 16)), ((1, 17, 9, 2), (33, 17))])
+    def test_resize_linear_grad_matches_jax_vjp(self, shape, out, align):
+        """autograd of F.interpolate against the JAX op's custom VJP."""
+        rng = np.random.default_rng(11)
+        x, g = _np(rng, *shape), _np(rng, shape[0], *out, shape[-1])
+        _, vjp = jax.vjp(lambda a: jops.resize_linear(a, out, align_corners=align), jnp.asarray(x))
+        tx = torch.from_numpy(x).requires_grad_()
+        ops.resize_linear(tx, out, align_corners=align).backward(torch.from_numpy(g))
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
+
+    def test_upsample_nearest_grad_matches_jax_vjp(self):
+        rng = np.random.default_rng(12)
+        x, g = _np(rng, 2, 8, 8, 4), _np(rng, 2, 50, 30, 4)
+        _, vjp = jax.vjp(lambda a: jops.upsample_nearest(a, (50, 30)), jnp.asarray(x))
+        tx = torch.from_numpy(x).requires_grad_()
+        ops.upsample_nearest(tx, (50, 30)).backward(torch.from_numpy(g))
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-5)
 
     @pytest.mark.parametrize("out", [(16, 16), (50, 30)])
     def test_upsample_nearest_matches_jax(self, out):
@@ -116,16 +147,56 @@ class TestConv:
         assert not w[37:].any() and not w[:, :, :, 5:].any()
 
     def test_conv_seq_packs_once_per_parameter_version(self):
+        """The packed buffers are allocated once per (dtype, device) and
+        refilled on every call, so they follow every parameter update, also
+        one that does not bump ``_version`` (as fused Adam's does not)."""
         seq = ops.ConvSeq(3, 4, 2, generator=torch.Generator().manual_seed(0))
         weights = [m.conv.weight for m in seq.children()]
         first = seq._packed_kernels(weights, torch.float32)
-        assert seq._packed_kernels(weights, torch.float32) is first
+        ptrs = [t.data_ptr() for t in first]
+        assert [t.data_ptr() for t in seq._packed_kernels(weights, torch.float32)] == ptrs
         bf16 = seq._packed_kernels(weights, torch.bfloat16)
-        assert bf16 is not first
+        assert bf16[0].dtype == torch.bfloat16 and bf16[0].data_ptr() not in ptrs
         seq.load_state_dict({k: v + 1 for k, v in seq.state_dict().items()})
         repacked = seq._packed_kernels(weights, torch.bfloat16)
-        assert repacked is not bf16
         assert torch.equal(repacked[0], pack_kernel(weights[0], torch.bfloat16))
+        version = weights[1]._version
+        weights[1].data.mul_(2)
+        assert weights[1]._version == version
+        assert torch.equal(seq._packed_kernels(weights, torch.float32)[1], pack_kernel(weights[1], torch.float32))
+
+    def test_packed_kernels_refill_after_inference_mode(self):
+        """Buffers first packed under inference_mode (an evaluation) are
+        refilled by a later forward outside it (a train step)."""
+        seq = ops.ConvSeq(3, 4, 2, generator=torch.Generator().manual_seed(3))
+        weights = [m.conv.weight for m in seq.children()]
+        with torch.inference_mode():
+            first = seq._packed_kernels(weights, torch.float32)
+        assert not any(t.is_inference() for t in first)
+        with torch.no_grad():
+            weights[0].add_(1)
+        again = seq._packed_kernels(weights, torch.float32)
+        assert again[0].data_ptr() == first[0].data_ptr()
+        assert torch.equal(again[0], pack_kernel(weights[0], torch.float32))
+
+    @pytest.mark.parametrize("optimizer", ["fused", "foreach", "trainer"])
+    def test_packed_kernels_follow_an_adam_step(self, optimizer):
+        from unet_zoo_tpu_torch.training import adam_coupled_l2
+
+        seq = ops.ConvSeq(3, 4, 3, generator=torch.Generator().manual_seed(1))
+        weights = [m.conv.weight for m in seq.children()]
+        before = [t.clone() for t in seq._packed_kernels(weights, torch.float32)]
+        gen = torch.Generator().manual_seed(2)
+        for p in seq.parameters():
+            p.grad = torch.randn(p.shape, generator=gen)
+        if optimizer == "trainer":
+            opt = adam_coupled_l2(seq.parameters(), 1e-2, 1e-5)
+        else:
+            opt = torch.optim.Adam(seq.parameters(), lr=1e-2, weight_decay=1e-5, **{optimizer: True})
+        opt.step()
+        for b, a, w in zip(before, seq._packed_kernels(weights, torch.float32), weights):
+            assert not torch.equal(a, b)
+            assert torch.equal(a, pack_kernel(w, torch.float32))
 
 
 class TestInit:

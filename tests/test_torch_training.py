@@ -1,0 +1,249 @@
+"""The port's train step against the JAX package's, at toy shapes.
+
+One JAX ``Trainer`` per dtype (module-scoped) runs its jitted ``_step_fn``;
+the port's ``Trainer`` starts from the same weights (``bridge``) and takes
+JAX's augmentation draws (``jax_draws`` of ``tests/test_torch_augment.py``,
+from the key the JAX step splits off ``state.rng``). Losses, parameters and
+the learning rate are compared after every step.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from test_torch_augment import jax_draws, jax_options
+from unet_zoo_tpu.experiments import ExperimentConfig as JaxExperimentConfig
+from unet_zoo_tpu.experiments import get_experiment as jax_get_experiment
+from unet_zoo_tpu.experiments import list_experiments as jax_list_experiments
+from unet_zoo_tpu.training import Trainer as JaxTrainer
+from unet_zoo_tpu.training import plateau_init as jax_plateau_init
+from unet_zoo_tpu.training import plateau_update as jax_plateau_update
+from unet_zoo_tpu.training.trainer import adam_coupled_l2 as jax_adam_coupled_l2
+from unet_zoo_tpu_torch.bridge import load_jax_params, state_dict_from_jax
+from unet_zoo_tpu_torch.data.augment import AugmentOptions
+from unet_zoo_tpu_torch.experiments import ExperimentConfig, get_experiment
+from unet_zoo_tpu_torch.experiments import registry
+from unet_zoo_tpu_torch.training import (
+    Trainer,
+    adam_coupled_l2,
+    plateau_init,
+    plateau_update,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+AUG = AugmentOptions(do_rotations=True, do_scaleaug=True, do_fliplr=True, do_flipud=True, nlabels=2)
+TINY = dict(experiment_name="tiny_unet", model="unet", filter_channels=(4, 8, 8, 8), n_classes=2,
+            image_size=(32, 32), seed=0)
+
+# f32, over 3 steps: the forwards and gradients agree to ~1e-6 relative
+# (loss 1.7e-7 and parameters 3.3e-3 lr apart, measured on the CPU), so
+# Adam's updates agree wherever |g| is well above eps
+F32_STEPS, F32_LOSS_RTOL, F32_PARAM_ATOL_LR = 3, 1e-5, 1e-2
+# bf16, one step: at these toy widths both packages' bf16 gradients lie
+# 5-50% (relative L2, per tensor) from the f32 gradient of the same weights
+# and batch, mostly from cancellation in the deep layers' sums. The JAX model
+# rounds each half of an up block's implicit concat separately, the port the
+# concat once, so their roundings differ. Bound: each tensor's bf16 gradient
+# is at most BF16_GRAD_VS_JAX times as far from the f32 gradient as JAX's
+# (1.9 at worst, measured), plus 0.01. Adam's first update is
+# lr * g / (|g| + eps), below lr in size, so the parameters differ by < 2 lr.
+BF16_LOSS_RTOL, BF16_GRAD_VS_JAX = 1e-3, 2.5
+
+
+def _batches(n, seed=0):
+    """Smooth noise, labelled where it is positive."""
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((n, 2, 36, 36, 1)).astype(np.float32)
+    x = sum(noise[:, :, i:i + 32, j:j + 32] for i in range(5) for j in range(5)) / 5
+    return x.astype(np.float32), (x[..., 0] > 0).astype(np.int32)
+
+
+def _jax_trainer(dtype, tmp_path_factory):
+    jcfg = JaxExperimentConfig(**TINY, batch_size=2, dtype=dtype, augmentation_options=jax_options(AUG))
+    return JaxTrainer(jcfg, log_dir=str(tmp_path_factory.mktemp(f"jax_{dtype}")), tensorboard=False)
+
+
+@pytest.fixture(scope="module")
+def jax_f32(tmp_path_factory):
+    return _jax_trainer("float32", tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def jax_bf16(tmp_path_factory):
+    return _jax_trainer("bfloat16", tmp_path_factory)
+
+
+def _port_trainer(dtype, params):
+    tr = Trainer(ExperimentConfig(**TINY, dtype=dtype, augmentation_options=AUG))
+    load_jax_params(tr.state.model, jax.device_get(params))
+    return tr
+
+
+def _step_both(jtr, jstate, tr, x, y):
+    """One JAX ``_step_fn`` and one port ``train_step`` on JAX's draws;
+    returns JAX's new state, both aux dicts and JAX's augmentation key."""
+    _, k_aug, _ = jax.random.split(jstate.rng, 3)  # as _step_fn_inner splits it
+    draws = jax_draws(k_aug, x.shape[0], x.shape[1:3], AUG)
+    jstate, jaux = jax.jit(jtr._step_fn)(jstate, jnp.asarray(x), jnp.asarray(y))
+    aux = tr.train_step(torch.from_numpy(x), torch.from_numpy(y), draws)
+    assert set(aux) == set(jaux) and not aux["loss"].requires_grad
+    return jstate, jaux, aux, k_aug
+
+
+def _param_diffs(jstate, tr):
+    want = state_dict_from_jax(jax.device_get(jstate.params), tr.state.model)
+    got = tr.state.model.state_dict()
+    return {k: (got[k] - want[k]).abs().max().item() for k in want}
+
+
+def test_train_steps_match_jax_f32(jax_f32):
+    jstate, lr = jax_f32.state, jax_f32.cfg.learning_rate
+    tr = _port_trainer("float32", jstate.params)
+    xs, ys = _batches(F32_STEPS)
+    for i in range(F32_STEPS):
+        jstate, jaux, aux, _ = _step_both(jax_f32, jstate, tr, xs[i], ys[i])
+        want_loss = float(jaux["loss"])
+        assert abs(aux["loss"].item() - want_loss) <= F32_LOSS_RTOL * want_loss, (i, aux["loss"], want_loss)
+        assert tr.state.step == int(jstate.step) == i + 1
+        assert tr.state.sched.lr.item() == float(jstate.sched.lr)
+        np.testing.assert_allclose(tr.state.sched.best.item(), float(jstate.sched.best), rtol=F32_LOSS_RTOL)
+        worst = max(_param_diffs(jstate, tr).values())
+        assert worst <= F32_PARAM_ATOL_LR * lr, (i, worst / lr)
+
+
+def test_train_step_bf16_within_bounds(jax_bf16):
+    from unet_zoo_tpu.data.augment import augment_batch_2d as jax_augment_batch_2d
+    from unet_zoo_tpu.models.registry import get_model as jax_get_model
+
+    params, lr = jax_bf16.state.params, jax_bf16.cfg.learning_rate
+    tr = _port_trainer("bfloat16", params)
+    xs, ys = _batches(1)
+    jstate, jaux, aux, k_aug = _step_both(jax_bf16, jax_bf16.state, tr, xs[0], ys[0])
+    want_loss = float(jaux["loss"])
+    assert abs(aux["loss"].item() - want_loss) <= BF16_LOSS_RTOL * want_loss
+    assert max(_param_diffs(jstate, tr).values()) < 2 * lr
+
+    # the step's gradients, against JAX's bf16 and the f32 gradient on the same batch
+    xa, ya = jax_augment_batch_2d(k_aug, jnp.asarray(xs[0]), jnp.asarray(ys[0]), jax_options(AUG))
+    f32_model = jax_get_model("unet", num_classes=2, num_filters=TINY["filter_channels"])
+
+    def grads(model):
+        return state_dict_from_jax(jax.device_get(jax.grad(
+            lambda p: model.loss(model.apply({"params": p}, xa, train=True), ya)[0])(params)), tr.state.model)
+
+    want_f32, want_bf16 = grads(f32_model), grads(jax_bf16.model)
+    for name, p in tr.state.model.named_parameters():
+        norm = want_f32[name].norm()
+        port_err = ((p.grad - want_f32[name]).norm() / norm).item()
+        jax_err = ((want_bf16[name] - want_f32[name]).norm() / norm).item()
+        assert port_err <= BF16_GRAD_VS_JAX * jax_err + 0.01, (name, port_err, jax_err)
+
+
+def test_adam_coupled_l2_matches_optax():
+    """Coupled L2: decoupled decay (AdamW) would be lr * wd * |p| ~ 1e-5
+    away after one step. The two compute the bias correction 1 - 0.999^t
+    in f32, where cancellation leaves ~6e-5 of relative error, each rounding
+    it its own way: each update (~lr in size) agrees to 1e-4 of lr, and the
+    parameter to that plus 1 ulp of its own size."""
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal(64).astype(np.float32)
+    grads = [rng.standard_normal(64).astype(np.float32) * s for s in (1.0, 1e-3, 10.0)]
+    tx = jax_adam_coupled_l2(1e-3, 1e-2)
+    jp = jnp.asarray(p0)
+    opt_state = tx.init(jp)
+    tp = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = adam_coupled_l2([tp], 1e-3, 1e-2)
+    assert isinstance(opt.param_groups[0]["lr"], torch.Tensor)
+    for g in grads:
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, jp)
+        jp = optax.apply_updates(jp, updates)
+        tp.grad = torch.from_numpy(g)
+        opt.step()
+        np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), rtol=2.0 ** -23, atol=1e-4 * 1e-3)
+
+
+def test_plateau_matches_jax():
+    losses = [1.0, 0.9, 0.95, 0.9 * (1 - 1e-5), 0.95, 0.8, 0.85, 0.85, 0.85, 0.85, 0.9, 0.9, 0.9, 0.9]
+    kw = dict(factor=0.5, patience=2, min_lr=3e-4)
+    js, ts = jax_plateau_init(1e-3), plateau_init(1e-3)
+    reductions = 0
+    for loss in losses:
+        js = jax_plateau_update(js, jnp.float32(loss), **kw)
+        lr_before = ts.lr.item()
+        ts = plateau_update(ts, torch.tensor(loss), **kw)
+        reductions += ts.lr.item() < lr_before
+        assert ts.lr.dtype == ts.best.dtype == torch.float32 and ts.num_bad.dtype == torch.int32
+        assert ts.lr.item() == float(js.lr) and ts.best.item() == float(js.best)
+        assert ts.num_bad.item() == int(js.num_bad)
+    assert reductions == 2 and ts.lr.item() == np.float32(3e-4)  # 1e-3 -> 5e-4 -> min_lr
+
+
+def test_checkpoint_resume_is_exact(tmp_path):
+    cfg = ExperimentConfig(**TINY, augmentation_options=AUG)
+    xs, ys = (torch.from_numpy(a) for a in _batches(3, seed=1))
+    straight = Trainer(cfg)
+    for i in range(2):
+        straight.train_step(xs[i], ys[i])
+    path = str(tmp_path / "ckpt.pt")
+    save_checkpoint(path, straight.state)
+    want = straight.train_step(xs[2], ys[2])
+
+    resumed = Trainer(cfg, seed=99)  # other weights, other draws: all overwritten
+    assert restore_checkpoint(path, resumed.state) is resumed.state
+    assert resumed.state.step == 2
+    got = resumed.train_step(xs[2], ys[2])
+    assert torch.equal(got["loss"], want["loss"])
+    assert resumed.state.step == straight.state.step == 3
+    a, b = resumed.state.model.state_dict(), straight.state.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for field in ("lr", "best", "num_bad"):
+        assert torch.equal(getattr(resumed.state.sched, field), getattr(straight.state.sched, field))
+    assert torch.equal(resumed.state.optimizer.param_groups[0]["lr"], straight.state.optimizer.param_groups[0]["lr"])
+    assert torch.equal(resumed.state.generator.get_state(), straight.state.generator.get_state())
+
+
+def test_same_seed_same_trainer():
+    cfg = ExperimentConfig(**TINY, augmentation_options=AUG)
+    xs, ys = (torch.from_numpy(a) for a in _batches(1, seed=2))
+    a, b = Trainer(cfg), Trainer(cfg)
+    assert torch.equal(a.train_step(xs[0], ys[0])["loss"], b.train_step(xs[0], ys[0])["loss"])
+    assert not torch.equal(Trainer(cfg, seed=1).train_step(xs[0], ys[0])["loss"], a.train_step(xs[0], ys[0])["loss"])
+
+
+def test_unet_experiment_matches_jax():
+    got, want = get_experiment("unet"), jax_get_experiment("unet")
+    for field in dataclasses.fields(got):
+        if field.name != "augmentation_options":
+            assert getattr(got, field.name) == getattr(want, field.name), field.name
+    assert dataclasses.asdict(got.augmentation_options) == {
+        k: v for k, v in dataclasses.asdict(want.augmentation_options).items() if k != "warp_precision"}
+    kw = got.model_kwargs()
+    assert kw["dtype"] is None and kw["num_filters"] == (32, 64, 128, 192) and kw["in_channels"] == 1
+    assert dataclasses.replace(got, dtype="bfloat16").model_kwargs()["dtype"] is torch.bfloat16
+
+
+def test_registry_names_every_jax_experiment():
+    ported, unported = set(registry.EXPERIMENTS), set(registry.NOT_PORTED)
+    assert not ported & unported and ported | unported == set(jax_list_experiments())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_experiment("phiseg_7_5_12")
+    with pytest.raises(ValueError, match="unknown experiment"):
+        get_experiment("resnet")
+
+
+@pytest.mark.parametrize("change,error", [
+    ({"model": "phiseg"}, NotImplementedError),
+    ({"model": "resnet"}, ValueError),
+    ({"dtype": "float16"}, ValueError),
+    ({"image_size": (32, 32, 32)}, NotImplementedError),
+    ({"image_size": (4, 32)}, ValueError),
+])
+def test_config_validate_rejects(change, error):
+    with pytest.raises(error):
+        dataclasses.replace(ExperimentConfig(**TINY), **change).validate()

@@ -105,6 +105,24 @@ def test_loss_sample_accumulate_match_jax():
     np.testing.assert_allclose(got, want, rtol=F32_RTOL, atol=F32_ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loss_gradient_matches_jax(dtype):
+    """The port's gather CE against the JAX one-hot contraction: the
+    gradient with respect to the logits, softmax minus one-hot over the
+    pixel count, in the logits' dtype."""
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((2, 6, 5, 3)).astype(np.float32)
+    labels = rng.integers(0, 3, (2, 6, 5)).astype(np.int32)
+    jl = jnp.asarray(logits, dtype)
+    want = jax.grad(lambda a: JaxUNet.loss(a, jnp.asarray(labels))[0])(jl)
+    tl = torch.from_numpy(logits).to(getattr(torch, dtype)).requires_grad_()
+    UNet.loss(tl, torch.from_numpy(labels))[0].backward()
+    assert tl.grad.dtype == tl.dtype
+    # f32: the same sums; bf16: the gradient is rounded once to bf16 on both sides
+    np.testing.assert_allclose(tl.grad.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-6 if dtype == "float32" else 2.0 ** -8, atol=1e-9)
+
+
 def test_bridge_checks_keys_and_shapes():
     x = np.zeros((1, 16, 16, 1), np.float32)
     params = jax.device_get(
@@ -139,7 +157,12 @@ def test_same_seed_same_weights():
 def test_port_never_imports_jax():
     # a subprocess: this test process has jax imported by tests/conftest.py
     code = ("import sys, unet_zoo_tpu_torch, unet_zoo_tpu_torch.models.registry, "
-            "unet_zoo_tpu_torch.bridge, unet_zoo_tpu_torch.ops.pallas._build; "
+            "unet_zoo_tpu_torch.bridge, unet_zoo_tpu_torch.ops.pallas._build, "
+            "unet_zoo_tpu_torch.data, unet_zoo_tpu_torch.data.augment, "
+            "unet_zoo_tpu_torch.experiments, unet_zoo_tpu_torch.experiments.config, "
+            "unet_zoo_tpu_torch.experiments.registry, unet_zoo_tpu_torch.training, "
+            "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "
+            "unet_zoo_tpu_torch.training.trainer; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'triton', 'unet_zoo_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,

@@ -24,6 +24,8 @@ class UNet(nn.Module):
     Up path: bilinear resize (``align_corners=False``) to the skip's exact
     spatial shape, concat ``(upsampled, skip)``, then a 3-conv block.
     ``in_channels`` is explicit here (the JAX model infers it at init).
+    With no BatchNorm, ``train()`` and ``eval()`` change nothing: the JAX
+    model's ``train`` flag only selects batch statistics.
     """
 
     def __init__(self, num_classes: int, num_filters: Sequence[int] = (32, 64, 128, 192),
@@ -77,6 +79,9 @@ class UNet(nn.Module):
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-element CE with integer labels over the trailing channel axis, in f32."""
+    """Per-element CE with integer labels over the trailing channel axis, in f32.
+
+    A gather where the JAX package contracts with a one-hot (a TPU choice);
+    the value and the gradient, softmax minus one-hot, are the same."""
     logp = F.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)

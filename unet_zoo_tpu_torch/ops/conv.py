@@ -18,7 +18,7 @@ the result is cast back to it (``conv_chain.conv2d_nhwc``).
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -75,8 +75,14 @@ class ConvSeq(nn.Module):
     """``depth`` stacked 3x3 conv + ReLU without norm (``conv{i}.conv``
     parameter paths, as in the JAX package), run as one fused conv chain:
     the kernel of ``ops/pallas/conv_chain.py`` on CUDA, its plain version on
-    the CPU. The CUDA path packs the kernels into the kernel's weight layout
-    once per parameter version."""
+    the CPU. Gradients reach the float32 ``weight``/``bias`` parameters on
+    both (``FusedConvChain`` on CUDA).
+
+    The CUDA path packs the kernels into the kernel's weight layout in
+    buffers allocated once per (dtype, device) and refilled on every
+    forward, one copy per stage. A cache keyed on the parameters' ``_version``
+    would go stale: ``torch.optim.Adam(fused=True)`` updates them in place
+    without bumping it."""
 
     def __init__(self, in_channels: int, features: int, depth: int,
                  dtype: Optional[torch.dtype] = None, device=None,
@@ -89,18 +95,13 @@ class ConvSeq(nn.Module):
             self.add_module(f"conv{i}", ConvBNAct(
                 in_channels if i == 0 else features, features, device=device, generator=generator,
             ))
-        self._packed_key: tuple = ()
-        self._packed: List[torch.Tensor] = []
+        self._packed: Dict[tuple, List[torch.Tensor]] = {}
 
     def _packed_kernels(self, weights: List[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
-        # an in-place update (optimizer step, load_state_dict) bumps _version;
-        # a move to another device gives a new pointer
-        key = (dtype, *((w.data_ptr(), w._version) for w in weights))
-        if key != self._packed_key:
-            with torch.no_grad():
-                self._packed = [pack_kernel(w, dtype) for w in weights]
-            self._packed_key = key
-        return self._packed
+        key = (dtype, weights[0].device)
+        self._packed[key] = [pack_kernel(w, dtype, out) for w, out in
+                             zip(weights, self._packed.get(key, [None] * len(weights)))]
+        return self._packed[key]
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)

@@ -2,7 +2,9 @@
 package's Pallas kernels they replace (sources in ``unet_zoo_tpu_torch/csrc``).
 
 `fused_conv_chain` — a chain of 3x3 conv + bias + ReLU stages, the U-Net
-block (see conv_chain.py). Forward only.
+block (see conv_chain.py). The forward is the kernel; the backward
+(``FusedConvChain``) takes the library's conv gradients, as the JAX package
+takes XLA's.
 """
 
 from unet_zoo_tpu_torch.ops.pallas.conv_chain import (

@@ -11,6 +11,20 @@ tensors the wrapper runs ``fused_conv_chain_reference``, the plain PyTorch
 version, which is also the kernel's oracle on the card. In the port this
 chain *is* the BN-free U-Net block (``models/blocks.py``).
 
+Gradients. When autograd records (grad mode on and an input requiring
+grad), the CUDA path runs through ``FusedConvChain``: its forward is the same
+kernel launches and keeps each stage's output, the ReLU mask and the next
+stage's input; its backward masks the cotangent, sums the bias gradient in
+f32 and takes dgrad and wgrad from the library's conv gradients
+(``aten.convolution_backward``). The JAX package has no backward kernel
+either: its Pallas kernel defines no autodiff rule, and its train step
+differentiates the plain ``Conv`` with XLA's conv transposes
+(``unet_zoo_tpu/ops/conv.py``). The cast points are those XLA takes there:
+a cotangent in ``x.dtype`` into the conv, operands in ``x.dtype``, the
+weight gradient cast to f32, the parameters' dtype. Under ``no_grad`` or
+``inference_mode`` the wrapper launches the stages directly and saves
+nothing.
+
 Kernels are OIHW, the port's storage layout (``nn.Conv2d``'s), not the JAX
 package's HWIO.
 """
@@ -23,6 +37,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from unet_zoo_tpu_torch.ops.pallas import _build
 
@@ -85,16 +100,24 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """OIHW kernel -> the CUDA kernel's weight layout: (C_out rounded up to 64,
     3, 3, C_in rounded up to 16) in ``dtype``, zero past C_out and C_in, so
     that for each output channel the 9 taps' input channels lie contiguous,
-    as the kernel streams them."""
+    as the kernel streams them.
+
+    ``out``, an earlier result for a kernel of the same shape, is refilled
+    in place (its zero padding stays) and returned. Not differentiable."""
     co, ci = kernel.shape[:2]
-    w = torch.zeros((_round_up(co, _CO_ALIGN), 3, 3, _round_up(ci, _CI_ALIGN)),
-                    dtype=dtype, device=kernel.device)
-    w[:co, :, :, :ci] = kernel.permute(0, 2, 3, 1)
-    return w
+    if out is None:
+        # a normal tensor even under inference_mode, so that a refill after
+        # it (a train step after an evaluation) is allowed
+        with torch.inference_mode(False):
+            out = torch.zeros((_round_up(co, _CO_ALIGN), 3, 3, _round_up(ci, _CI_ALIGN)),
+                              dtype=dtype, device=kernel.device)
+    with torch.no_grad():
+        out[:co, :, :, :ci] = kernel.permute(0, 2, 3, 1)
+    return out
 
 
 def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -118,16 +141,61 @@ def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> 
     return out
 
 
+class FusedConvChain(torch.autograd.Function):
+    """The kernel chain with a backward: ``apply(x, packed, k0, b0, k1, b1, ...)``.
+
+    ``packed[j]`` is ``pack_kernel(k_j, x.dtype)``, an input with no gradient;
+    the OIHW float32 kernels and biases are the differentiable parameters.
+    The forward launches the kernel once per stage and saves x and every
+    stage's output; the backward runs the library's conv gradients (see the
+    module docstring). No kernel runs in the backward, so it counts no launch.
+    """
+
+    @staticmethod
+    def forward(ctx, x, packed, *params):
+        ys = [x]
+        for w, b in zip(packed, params[1::2]):
+            ys.append(_launch_stage(ys[-1], w, b))
+        ctx.save_for_backward(*params[0::2], *ys)
+        return ys[-1]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        n = len(saved) // 2
+        kernels, ys = saved[:n], saved[n:]  # ys[j] is stage j's input, ys[j + 1] its output
+        grads = [None] * (2 * n)
+        g = grad
+        for j in reversed(range(n)):
+            g = torch.where(ys[j + 1] > 0, g, 0)
+            if ctx.needs_input_grad[3 + 2 * j]:
+                grads[2 * j + 1] = g.float().sum((0, 1, 2))
+            need_x = j > 0 or ctx.needs_input_grad[0]
+            # NHWC permuted to NCHW is a channels_last view, which cuDNN takes as is
+            gx, gk, _ = torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), ys[j].permute(0, 3, 1, 2), kernels[j].to(g.dtype), None,
+                [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                [need_x, ctx.needs_input_grad[2 + 2 * j], False],
+            )
+            if gk is not None:
+                grads[2 * j] = gk.float()
+            g = gx.permute(0, 2, 3, 1) if need_x else None
+        return (g, None, *grads)
+
+
 def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor], relu_last: bool = True,
                      packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """x: (B, H, W, C0) NHWC, float32 or bfloat16. kernels[j]: (C_{j+1}, C_j, 3, 3)
     OIHW; biases[j]: (C_{j+1},). Returns (B, H, W, C_N) in ``x.dtype``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel once
-    per stage, or raise. ``packed`` optionally gives ``pack_kernel(k, x.dtype)``
-    of each kernel, for a caller that keeps them across calls; without it the
-    kernels are packed on every call. The CPU path ignores it.
+    CPU tensors take the plain version (differentiable by autograd); CUDA
+    tensors launch the kernel once per stage, or raise, through
+    ``FusedConvChain`` when autograd records. ``packed`` optionally gives
+    ``pack_kernel(k, x.dtype)`` of each kernel, for a caller that keeps the
+    buffers across calls; without it the kernels are packed on every call.
+    The CPU path ignores it.
     """
     if not relu_last:
         raise NotImplementedError("non-ReLU last stage not implemented (nor in the JAX kernel)")
@@ -147,6 +215,8 @@ def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
         if tuple(w.shape) != want or w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
             raise ValueError(f"stage {j}: packed kernel must be contiguous {want} {x.dtype} on "
                              f"{x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *kernels, *biases)):
+        return FusedConvChain.apply(x, packed, *(t for kb in zip(kernels, biases) for t in kb))
     for w, b in zip(packed, biases):
         x = _launch_stage(x, w, b)
     return x

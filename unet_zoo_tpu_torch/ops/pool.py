@@ -2,7 +2,12 @@
 
 torch's ``AvgPool2d(kernel=2, stride=2, ceil_mode=True)`` divides each window
 by the number of in-bounds elements, which is the semantics the JAX op
-reproduces by hand; here the library op is used directly. Forward only.
+reproduces by hand; here the library op is used directly. Its gradient is
+autograd's through ``F.avg_pool2d``, which spreads each output's cotangent
+over its window with the same 1/count: the JAX package's custom VJP
+(``unet_zoo_tpu/ops/pool.py``, the pre-transposed averaging matrices)
+computes the same map, and ``tests/test_torch_ops.py`` holds the two
+together.
 """
 
 from __future__ import annotations

@@ -4,6 +4,9 @@ The JAX package contracts small interpolation matrices because gathers are
 slow on a TPU; ``F.interpolate`` has the same semantics (the JAX tests pin
 their op against it) and is used directly. Sizes are always explicit, never
 a ``scale_factor``, so odd pyramids resize to the skip's exact shape.
+Gradients are autograd's through ``F.interpolate``: the transpose of the
+same interpolation map that the JAX package's custom VJP contracts with
+pre-transposed matrices; ``tests/test_torch_ops.py`` holds the two together.
 """
 
 from __future__ import annotations
