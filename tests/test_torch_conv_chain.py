@@ -224,3 +224,115 @@ def test_function_matches_plain_autograd(monkeypatch):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * b.abs().max().item())
     assert not any(p.requires_grad for p in packed)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernel's launch plan and weight layout (Python, so that the CPU
+# reaches what surrounds the kernel; the kernel checks the plan it is given)
+# ---------------------------------------------------------------------------
+
+# the 7 U-Net blocks at full width: (spatial size, C_in after the concat, C_out)
+_BLOCKS = [(128, 1, 32), (64, 32, 64), (32, 64, 128), (16, 128, 192), (32, 320, 128), (64, 192, 64), (128, 96, 32)]
+# the 21 stages of the main path at the forward's and the train step's batch
+MAIN_STAGES = [(batch, size, cin, co) for batch in (512, 64) for size, ci, co in _BLOCKS for cin in (ci, co, co)]
+# chip_smoke.py's test and edge shapes, stage by stage: (x shape, C_out)
+EDGE_STAGES = [
+    ((2, 16, 16, 4), 8), ((2, 16, 16, 8), 8), ((1, 8, 8, 2), 4), ((3, 20, 12, 4), 4), ((3, 20, 12, 4), 6),
+    ((1, 33, 17, 3), 5), ((1, 33, 17, 5), 5), ((1, 33, 17, 5), 2), ((1, 1, 1, 37), 100), ((2, 5, 40, 9), 65),
+    ((2, 5, 40, 65), 3), ((1, 17, 3, 16), 64), ((1, 17, 3, 64), 33), ((1, 13, 21, 96), 192),
+    ((1, 13, 21, 192), 5), ((2, 19, 35, 1), 32), ((2, 19, 35, 32), 200),
+]
+
+
+def _assert_plan_fits_the_card(p, ci, co):
+    assert p.smem_bytes <= conv_chain.SMEM_LIMIT
+    assert all(0 < d <= conv_chain.TMA_BOX_MAX for d in p.halo_box + p.weight_box)
+    # TMA takes global strides in multiples of 16 bytes: the input's pixel
+    # stride where the halo comes by TMA, the packed weights' row always
+    if p.loader == "tma":
+        assert ci * 2 % 16 == 0
+    else:
+        assert ci * 2 % 16 != 0
+    assert 9 * p.ci_pad * 2 % 16 == 0
+    assert p.chunk in (16, 32, 64) and p.ci_pad % p.chunk == 0 and p.ci_pad - ci < p.chunk
+    assert p.block_n in (32, 64, 128, 192) and p.co_pad >= co
+    assert p.tile_h in (4, 8) and p.threads == 32 * p.tile_h + 32  # a consumer warp an output row
+    assert 2 <= p.halo_stages <= 4
+    if p.resident:
+        assert p.weight_stages == 9 * p.ci_pad // p.chunk and p.block_n >= co
+        assert 2 * (p.smem_bytes + 1024) <= conv_chain.SMEM_LIMIT + 2048  # two blocks an SM
+    else:
+        assert 2 <= p.weight_stages <= 8
+
+
+@pytest.mark.parametrize("batch,size,ci,co", MAIN_STAGES)
+def test_launch_plan_of_the_main_path(batch, size, ci, co):
+    p = conv_chain.launch_plan((batch, size, size, ci), co)
+    _assert_plan_fits_the_card(p, ci, co)
+    assert p.block_n >= co  # all of C_out in one block: the halo is fetched once a tile
+    # the grid is persistent (the launcher caps it at the blocks resident at
+    # once), and the work items alone fill the card's SMs
+    assert p.items >= conv_chain.SM_COUNT
+    assert p.loader == ("plain" if ci == 1 else "tma")
+
+
+@pytest.mark.parametrize("shape,co", EDGE_STAGES)
+def test_launch_plan_of_the_edges(shape, co):
+    p = conv_chain.launch_plan(shape, co)
+    _assert_plan_fits_the_card(p, shape[-1], co)
+    batch, height, width, _ = shape
+    assert p.items == batch * -(-height // p.tile_h) * -(-width // conv_chain.TILE_W) * -(-co // p.block_n)
+    # grids that cannot fill the card take the smaller tile: one consumer warpgroup
+    assert p.tile_h == 4 and p.threads == 160
+
+
+@pytest.mark.parametrize("choice", [{"tile_h": 4}, {"halo_stages": 2}, {"resident": False}])
+@pytest.mark.parametrize("batch,size,ci,co", MAIN_STAGES[:21])
+def test_launch_plan_takes_other_choices(choice, batch, size, ci, co):
+    """The other plans that tools/torch_conv_chain_stages.py --plans times:
+    each keeps the choice it was given and still fits the card, and a choice
+    that is the plan's own gives the plan itself."""
+    shape = (batch, size, size, ci)
+    own = conv_chain.launch_plan(shape, co)
+    p = conv_chain.launch_plan(shape, co, **choice)
+    _assert_plan_fits_the_card(p, ci, co)
+    assert all(getattr(p, key) == value for key, value in choice.items())
+    if all(getattr(own, key) == value for key, value in choice.items()):
+        assert p == own
+
+
+def test_launch_plan_takes_the_plain_loader_for_a_misaligned_input():
+    assert conv_chain.launch_plan((2, 16, 16, 64), 64, aligned=True).loader == "tma"
+    assert conv_chain.launch_plan((2, 16, 16, 64), 64, aligned=False).loader == "plain"
+
+
+@pytest.mark.parametrize("ci", [1, 9, 16, 32, 37, 64, 96, 192, 320])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_kernel_round_trip(ci, dtype):
+    """The packed layout (C_out_pad, 3, 3, C_in_pad) holds whole K chunks of
+    the bf16 kernel and gives back the OIHW kernel, zeros elsewhere."""
+    co = 33
+    k = torch.from_numpy(np.random.default_rng(ci).standard_normal((co, ci, 3, 3)).astype(np.float32))
+    packed = conv_chain.pack_kernel(k, dtype)
+    chunk = conv_chain.chunk_width(ci)
+    assert chunk == min(c for c in (16, 32, 64) if c >= min(ci, 64))
+    assert packed.shape == (64, 3, 3, conv_chain.padded_ci(ci)) and packed.dtype == dtype
+    assert packed.shape[-1] % chunk == 0 and packed.shape[-1] - ci < chunk
+    assert packed.shape[-1] == conv_chain.launch_plan((1, 8, 8, ci), co).ci_pad
+    torch.testing.assert_close(packed[:co, :, :, :ci].permute(0, 3, 1, 2), k.to(dtype), rtol=0, atol=0)
+    assert not packed[co:].any() and not packed[:, :, :, ci:].any()
+    # viewed as the weights' TMA tensor (C_out_pad, 9 * C_in_pad), K-major:
+    # row n, column tap * C_in_pad + c is k[n, c, tap // 3, tap % 3]
+    rows = packed.reshape(64, -1)
+    n, c, tap = 5, ci - 1, 7
+    assert rows[n, tap * packed.shape[-1] + c] == k[n, c, tap // 3, tap % 3].to(dtype)
+
+
+def test_plain_stage_slices_the_packed_layout():
+    """The test helper that stands in for a launch reads the packed layout as
+    the kernel does: one full and one partial 64-channel chunk."""
+    x, ks, bs = _torch_args(*_inputs((1, 9, 11, 96), [(96, 40)], seed=7))
+    packed = conv_chain.pack_kernel(ks[0], torch.float32)
+    assert packed.shape == (64, 3, 3, 128)
+    torch.testing.assert_close(_plain_stage(x, packed, bs[0]), fused_conv_chain_reference(x, ks, bs),
+                               rtol=0, atol=0)

@@ -80,7 +80,7 @@ def jax_bf16(tmp_path_factory):
 
 
 def _port_trainer(dtype, params):
-    tr = Trainer(ExperimentConfig(**TINY, dtype=dtype, augmentation_options=AUG))
+    tr = Trainer(ExperimentConfig(**TINY, dtype=dtype, augmentation_options=AUG), device="cpu")
     load_jax_params(tr.state.model, jax.device_get(params))
     return tr
 
@@ -187,14 +187,14 @@ def test_plateau_matches_jax():
 def test_checkpoint_resume_is_exact(tmp_path):
     cfg = ExperimentConfig(**TINY, augmentation_options=AUG)
     xs, ys = (torch.from_numpy(a) for a in _batches(3, seed=1))
-    straight = Trainer(cfg)
+    straight = Trainer(cfg, device="cpu")
     for i in range(2):
         straight.train_step(xs[i], ys[i])
     path = str(tmp_path / "ckpt.pt")
     save_checkpoint(path, straight.state)
     want = straight.train_step(xs[2], ys[2])
 
-    resumed = Trainer(cfg, seed=99)  # other weights, other draws: all overwritten
+    resumed = Trainer(cfg, device="cpu", seed=99)  # other weights, other draws: all overwritten
     assert restore_checkpoint(path, resumed.state) is resumed.state
     assert resumed.state.step == 2
     got = resumed.train_step(xs[2], ys[2])
@@ -211,9 +211,19 @@ def test_checkpoint_resume_is_exact(tmp_path):
 def test_same_seed_same_trainer():
     cfg = ExperimentConfig(**TINY, augmentation_options=AUG)
     xs, ys = (torch.from_numpy(a) for a in _batches(1, seed=2))
-    a, b = Trainer(cfg), Trainer(cfg)
+    a, b = Trainer(cfg, device="cpu"), Trainer(cfg, device="cpu")
     assert torch.equal(a.train_step(xs[0], ys[0])["loss"], b.train_step(xs[0], ys[0])["loss"])
-    assert not torch.equal(Trainer(cfg, seed=1).train_step(xs[0], ys[0])["loss"], a.train_step(xs[0], ys[0])["loss"])
+    assert not torch.equal(Trainer(cfg, device="cpu", seed=1).train_step(xs[0], ys[0])["loss"], a.train_step(xs[0], ys[0])["loss"])
+
+
+def test_trainer_defaults_to_the_card(monkeypatch):
+    """With no device and no card, the entry point raises rather than
+    training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ExperimentConfig(**TINY, augmentation_options=AUG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_unet_experiment_matches_jax():

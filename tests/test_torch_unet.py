@@ -37,7 +37,7 @@ def _pair(hw, jax_dtype=None, torch_dtype=None, seed=0):
     x = np.random.default_rng(seed).standard_normal((2, *hw, 1)).astype(np.float32)
     jmodel = jax_get_model("unet", num_classes=2, num_filters=FILTERS, dtype=jax_dtype)
     variables = jmodel.init({"params": jax.random.PRNGKey(seed)}, jnp.asarray(x), train=False)
-    tmodel = get_model("unet", num_classes=2, num_filters=FILTERS, dtype=torch_dtype,
+    tmodel = get_model("unet", num_classes=2, num_filters=FILTERS, dtype=torch_dtype, device="cpu",
                        generator=torch.Generator().manual_seed(seed))
     load_jax_params(tmodel, jax.device_get(variables["params"]))
     return x, jmodel, variables, tmodel
@@ -139,7 +139,7 @@ def test_bridge_checks_keys_and_shapes():
 
 
 def test_registry_and_unported_modes():
-    assert isinstance(get_model("unet", num_classes=2, num_filters=FILTERS), UNet)
+    assert isinstance(get_model("unet", num_classes=2, num_filters=FILTERS, device="cpu"), UNet)
     with pytest.raises(NotImplementedError, match="not ported"):
         get_model("phiseg", num_classes=2)
     with pytest.raises(ValueError, match="unknown model"):

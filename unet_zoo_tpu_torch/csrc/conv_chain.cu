@@ -5,63 +5,122 @@
 // fused_conv_chain (body _chain_kernel). Same semantics: zero padding, f32
 // accumulation, bias and ReLU in the epilogue, the result rounded once to the
 // input's dtype. The wrapper (unet_zoo_tpu_torch/ops/pallas/conv_chain.py)
-// chains the stages and hands each launch weights already cast to the input
-// dtype and laid out as (C_out_pad, 3, 3, C_in_pad), zero-padded.
+// chains the stages, hands each launch weights already cast to the input
+// dtype and laid out as (C_out_pad, 3, 3, C_in_pad), zero-padded, and
+// computes the launch plan (K chunk, output channels and rows a block,
+// pipeline depth, shared memory, loader) that the bf16 launcher checks.
 //
 // What bounds it on an H100. Per output pixel a stage does 2*9*C_in*C_out
 // FLOPs and, at best, moves (C_in + C_out) activations through device memory.
 // With C_in = C_out = C in bf16 that is 4.5*C FLOP/byte: 144 at C = 32 (the
 // 128x128 levels, below the ~295 FLOP/byte bf16 ridge, so memory traffic is
 // the floor there), 576 to 864 at C = 128..192 (compute-bound). Either floor
-// needs the tensor cores fed from well-reused shared-memory tiles.
+// needs the tensor cores fed from shared memory while the next tiles load.
 //
-// What this first design does:
-// * implicit GEMM, M = 128 output pixels (an 8x16 tile of one image),
-//   N = 32 or 64 output channels, K = 9 taps x C_in streamed in chunks of 16
-//   channels; the Pallas kernel's whole-image VMEM plan (~27 MB at
-//   128x128x96) cannot fit the 227 KB of shared memory a block gets;
-// * zero padding by masking the loads of the 10x18 halo tile at the image
-//   edge: no padded copy of the input in device memory;
-// * bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate), warp tile 32x32,
-//   fragments read with 32-bit shared loads from rows padded to 48 bytes so a
-//   warp's 32 reads hit 32 distinct banks; any C_in >= 1 (loads masked past
-//   C_in, vectorised 16-byte loads when C_in % 8 == 0);
-// * f32: CUDA-core FMA, 4 pixels x 8 channels a thread, so f32 results keep
-//   full f32 precision (no TF32).
+// The bf16 design (conv3x3_bf16_wgmma), an implicit GEMM per block:
+// * M = 64 or 128 output pixels (a 4x16 or 8x16 tile of one image: one or
+//   two consumer warpgroups, one m64 wgmma tile each), N = all of C_out in
+//   one block up to 192 (wgmma n32/n64/n128/n192; wider C_out takes several
+//   blocks along grid y), K = 9 taps x C_in in chunks of 16, 32 or 64 input
+//   channels (32, 64 or 128-byte rows, with the TMA swizzle of that width).
+// * Warp-specialised and persistent: as many blocks as fit on the card at
+//   once walk the work items (tile, channel block). One producer warp keeps
+//   loads in flight into two rings guarded by full/empty mbarriers, running
+//   ahead into the next item: the input halo ((TH+2) x 18 pixels x one
+//   chunk, reused by all 9 taps) and the weights (one (chunk, tap) tile of
+//   N x chunk a stage; where all 9 * chunks tiles fit with two blocks an SM
+//   they stay resident, loaded once a block). The consumers run
+//   wgmma.mma_async with f32 accumulators in registers, one group in flight
+//   while the next tap's A is fetched.
+// * Input halo by TMA: a 4-D tiled tensor map over NHWC, box (chunk, 18,
+//   TH+2, 1) at (c0, w0-1, h0-1, b). TMA fills the out-of-bounds elements,
+//   negative coordinates and channels past C_in included, with zeros: that
+//   is the 'same' padding, with no masks and no padded copy.
+// * Weights by TMA: a 2-D map over the packed weights viewed as (C_out_pad,
+//   9*C_in_pad), K-major; wgmma reads each tile through a shared-memory
+//   descriptor of the matching swizzle.
+// * Epilogue in registers: f32 bias, ReLU, one rounding to bf16, then 4-byte
+//   stores of channel pairs, a lane quad writing 16 contiguous bytes. A quad
+//   transpose into 16-byte stores cost more instructions than it saved: with
+//   it gone and the clock read off the waits' fast path, a 32 -> 32 stage
+//   went from 0.636 to 0.519 ms at bs512 on an NVIDIA H100 80GB HBM3 at 700 W
+//   (tools/torch_conv_chain_stages.py).
+// The traps, and which way each is solved:
+// * A shifted tap is no plain descriptor slice of the halo: 16-pixel output
+//   rows sit in 18-pixel halo rows, and a shift by dx moves the swizzle
+//   phase. So A comes from registers: each lane gives ldmatrix the address
+//   of its own (swizzled) halo row, and wgmma takes A from registers and B
+//   from shared memory. Each input byte crosses L2 once a tile, not 9 times.
+// * TMA needs 16-byte global strides: C_in % 8 != 0 (the U-Net's first
+//   stage has C_in = 1) or an input not 16-byte aligned takes the plain
+//   loader instead (load_halo_plain): the producer warp reads the halo with
+//   masked 2-byte loads (cp.async copies 4 bytes at least, from aligned
+//   addresses, so it cannot take a 2-byte pixel stride) and writes it in the
+//   same swizzled layout, feeding the same wgmma body. The wrapper picks the
+//   loader by shape and alignment; both count as a launch.
+// * Nine taps' weights for one chunk do not fit beside the halo at N = 192
+//   (221 KB), so the K loop runs over (chunk, tap) with the halo reused
+//   across its 9 taps; above 48 KB of shared memory the kernel is opened up
+//   to 227 KB with cudaFuncSetAttribute before its first launch on a device.
+// * ptxas serializes wgmma, with only a line in its log, when the role
+//   branch looks divergent (C7518) or an A register is redefined while a
+//   wgmma that read it may be in flight (C7513). So the roles branch on a
+//   shuffled, warp-uniform warp index, the mbarrier wait loops inside its
+//   asm, and the last tap of a chunk drains the pipeline before the chunk
+//   loop's next pass (chip_smoke.py fails on either warning).
+// * An mbarrier arrive does not wait for an ldmatrix still in flight before
+//   it (the SASS issues the arrive right behind the LDSM). Released right
+//   after the last tap's ldmatrix, a halo stage could take the producer's
+//   next TMA before that ldmatrix had read it: the U-Net's down1 block at
+//   batch 512 went wrong in about 1 launch of 20, by up to 1.06
+//   (tools/torch_conv_chain_repeats.py, NVIDIA H100 80GB HBM3 at 700 W).
+//   So a consumer releases the halo stage only after the wgmmas that
+//   consumed those registers are done, and chip_smoke.py holds every
+//   block's repeated launches to one bit-identical result.
+// * A pipeline fault must not hang the card: a wait that outlasts ~10 s
+//   traps, and the launch reports an error.
+// * Tensor maps hold the global address, so both are encoded on the host at
+//   every launch, through cuTensorMapEncodeTiled taken from libcuda.so.1 with
+//   dlopen (no -lcuda), and passed as __grid_constant__ parameters.
+// * Small grids: the wrapper takes 4-row tiles (one consumer warpgroup) when
+//   8-row tiles give fewer blocks than the card has SMs.
+// The f32 path (conv3x3_f32_fma) is for parity only: CUDA-core FMA, 4 pixels
+// x 8 channels a thread, so f32 results keep full f32 precision (no TF32).
 // What it leaves for later: stage fusion with per-tile halo recompute (each
 // stage's output round-trips device memory here), reading the up path's two
-// inputs without a concat, pool/resize folded into the loader, a cp.async or
-// TMA pipeline (loads and MMAs do not overlap within a block here), wgmma,
-// and a backward.
+// inputs without a concat, pool/resize folded into the loader, and a
+// hand-written backward.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda.so.1 itself is opened with dlopen
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
-constexpr int TH = 8;                       // output tile rows
-constexpr int TW = 16;                      // output tile cols: 128 pixels a block
+constexpr int TW = 16;  // output tile cols
 constexpr int HALO_W = TW + 2;
-constexpr int HALO_PIX = (TH + 2) * HALO_W;  // 180 input pixels a tile reads
-constexpr int KC = 16;                      // input channels a K step (one k16 MMA per tap)
 
 struct Shape {
   int batch, height, width, ci, ci_pad, co;
-  int tiles_h, tiles_w;
+  int tile_h, tiles_h, tiles_w;
+  int n_blocks;  // blocks of output channels a tile
 };
 
 struct Tile {
   int b, h0, w0;
 };
 
-__device__ __forceinline__ Tile tile_of(const Shape& s) {
-  int t = blockIdx.x;
+__device__ __forceinline__ Tile tile_of(const Shape& s, int t) {
   Tile r;
   r.w0 = (t % s.tiles_w) * TW;
   t /= s.tiles_w;
-  r.h0 = (t % s.tiles_h) * TH;
+  r.h0 = (t % s.tiles_h) * s.tile_h;
   r.b = t / s.tiles_h;
   return r;
 }
@@ -74,134 +133,412 @@ __device__ __forceinline__ int64_t pixel_index(const Shape& s, int b, int h, int
   return (static_cast<int64_t>(b) * s.height + h) * s.width + w;
 }
 
-// ---------------------------------------------------------------- bf16, mma.sync
+// ---------------------------------------------------------------- bf16, TMA + wgmma
 
-constexpr int LDS_BF16 = KC + 8;  // smem row stride in elements (48 bytes)
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have on an H100
+constexpr int HALO_STAGES_MAX = 4;
+constexpr int WEIGHT_STAGES_MAX = 54;  // 6 resident chunks; (2 * 4 + 2 * 54) mbarriers fit in 1024 bytes
 
-__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+struct Pipe {
+  int halo_stages, weight_stages;
+  int halo_bytes;   // one halo box
+  int halo_stride;  // a halo stage, rounded up to the 1024-byte swizzle period
+  int weight_bytes;  // one (chunk, tap) weight tile
+  int tma;          // 1: halo by TMA, 0: by the plain loader
+  int resident;     // 1: all 9 * chunks weight tiles stay in shared memory
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// ~10 s at the H100's clock: a wait that long is a pipeline fault, and
+// trapping turns it into a launch error instead of a hung card
+constexpr long long WATCHDOG_CYCLES = 20000000000LL;
+
+// Returns once the phase of the given parity has completed. The loop lives
+// inside the asm, so the compiler sees no divergent branch before the
+// wgmma that follows (it would serialize the wgmmas otherwise); the clock is
+// read only once the first try has failed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, %2;\n"
+      "@p bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "l"(WATCHDOG_CYCLES)
+      : "memory");
 }
 
-// BN output channels a block; 4 x (BN/32) warps, each owning 2 output rows of
-// the tile (two m16 tiles of 16 pixels) by 32 channels (four n8 tiles).
-template <int BN>
-__global__ void __launch_bounds__(4 * BN)
-    conv3x3_bf16_mma(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w,
-                     const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                     Shape s, bool vec_loads) {
-  constexpr int WARPS_N = BN / 32;
-  constexpr int THREADS = 4 * BN;
-  __shared__ __align__(16) uint16_t sx[HALO_PIX * LDS_BF16];  // [halo pixel][channel]
-  __shared__ __align__(16) uint16_t sw[9 * BN * LDS_BF16];    // [tap][out channel][channel]
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp / WARPS_N, warp_n = warp % WARPS_N;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment group and thread-in-group
-  const Tile tile = tile_of(s);
-  const int n0 = blockIdx.y * BN;
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
 
-  for (int k0 = 0; k0 < s.ci_pad; k0 += KC) {
-    // halo tile, 8 channels (16 bytes) an item; zeros outside the image and past C_in
-    for (int i = tid; i < HALO_PIX * 2; i += THREADS) {
-      const int p = i >> 1, c = k0 + (i & 1) * 8;
-      const int h = tile.h0 + p / HALO_W - 1, wc = tile.w0 + p % HALO_W - 1;
-      union {
-        uint4 v;
-        uint16_t e[8];
-      } u;
-      u.v = make_uint4(0, 0, 0, 0);
-      if (in_image(s, h, wc) && c < s.ci) {
-        const uint16_t* src = x + pixel_index(s, tile.b, h, wc) * s.ci + c;
-        if (vec_loads) {
-          u.v = *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The TMA swizzle of KC-channel (2*KC-byte) rows: the 16-byte unit index
+// (address bits 4..) is XORed with address bits 7.. over log2(KC/8) bits.
+// `off` is from a 1024-byte aligned base, so it has the address's low bits.
+template <int KC>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  return off ^ (((off >> 7) & (KC / 8 - 1)) << 4);
+}
+
+// wgmma shared-memory descriptor of a K-major N x KC weight tile with the
+// swizzle of its row width: 8-row groups KC*2*8 bytes apart (SBO), the
+// leading offset unused (1), layout 1/2/3 = 128/64/32-byte swizzle.
+template <int KC>
+__device__ __forceinline__ uint64_t weight_desc(uint32_t addr) {
+  constexpr uint64_t layout = KC == 64 ? 1 : KC == 32 ? 2 : 3;
+  constexpr uint64_t sbo = 8 * KC * 2 / 16;
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (1ull << 16) | (sbo << 32) | (layout << 62);
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulate, A from registers (the m16n8k16
+// A fragment of each warp's 16 rows), B K-major from shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// The plain loader: the producer warp reads one halo chunk with masked
+// loads (zeros outside the image and past C_in) and writes it in the
+// layout TMA would, swizzle included. A lane loads BATCH 16-byte units
+// before it stores any, so a halo costs a few memory round trips and not
+// one a unit; channel pairs are packed into 32-bit words by shifts.
+template <int KC>
+__device__ void load_halo_plain(const uint16_t* __restrict__ x, const Shape& s, uint8_t* dst, Tile tile,
+                                int c0, int lane) {
+  constexpr int VEC = KC / 8;  // 16-byte units a pixel
+  constexpr int BATCH = 4;
+  const int units = (s.tile_h + 2) * HALO_W * VEC;
+  for (int i0 = lane; i0 < units; i0 += 32 * BATCH) {
+    uint32_t v[BATCH][4];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + 32 * k, p = i / VEC, c = c0 + (i % VEC) * 8;
+      const int h = tile.h0 - 1 + p / HALO_W, w = tile.w0 - 1 + p % HALO_W;
+      const bool valid = i < units && in_image(s, h, w) && c < s.ci;
+      const uint16_t* src = x + (valid ? pixel_index(s, tile.b, h, w) * s.ci + c : 0);
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const uint32_t lo = valid && c + e < s.ci ? src[e] : 0;
+        const uint32_t hi = valid && c + e + 1 < s.ci ? src[e + 1] : 0;
+        v[k][e / 2] = lo | hi << 16;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + 32 * k;
+      if (i < units)
+        *reinterpret_cast<uint4*>(dst + swizzle<KC>((i / VEC) * KC * 2 + (i % VEC) * 16)) =
+            make_uint4(v[k][0], v[k][1], v[k][2], v[k][3]);
+    }
+  }
+}
+
+// BN output channels a block (all of C_out up to 192), KC input channels a
+// K chunk. Persistent: each block walks work items (tile, channel block)
+// blockIdx.x, + gridDim.x, ...; the producer runs ahead into the next
+// item while the consumers finish one. Consumer warp w (of tile_h) owns
+// output row w of the tile; the producer warp comes after them. With
+// pipe.resident the weight "ring" holds all 9 * chunks tiles, loaded once
+// a block and never released.
+template <int BN, int KC>
+__global__ void __launch_bounds__(288, BN <= 64 ? 2 : 1)
+    conv3x3_bf16_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                       const uint16_t* __restrict__ x, const float* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, Shape s, Pipe pipe) {
+  constexpr int KSTEPS = KC / 16;
+  constexpr int PIX_BYTES = KC * 2;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // barriers in the first 1024 bytes, then the rings
+  const uint32_t halo0 = base + 1024;
+  const uint32_t weight0 = halo0 + pipe.halo_stages * pipe.halo_stride;
+  const int hs_n = pipe.halo_stages, ws_n = pipe.weight_stages;
+  auto halo_full = [&](int i) { return base + 8 * i; };
+  auto halo_empty = [&](int i) { return base + 8 * (hs_n + i); };
+  auto weight_full = [&](int i) { return base + 8 * (2 * hs_n + i); };
+  auto weight_empty = [&](int i) { return base + 8 * (2 * hs_n + ws_n + i); };
+
+  // the warp index through a shuffle, so the compiler knows it is warp-uniform
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int consumer_threads = 32 * s.tile_h;  // one warp an output row
+  if (tid == 0) {
+    for (int i = 0; i < hs_n; ++i) {
+      mbar_init(halo_full(i), pipe.tma ? 1 : 32);
+      mbar_init(halo_empty(i), consumer_threads);
+    }
+    for (int i = 0; i < ws_n; ++i) {
+      mbar_init(weight_full(i), 1);
+      mbar_init(weight_empty(i), consumer_threads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int chunks = s.ci_pad / KC;
+  const int items = s.batch * s.tiles_h * s.tiles_w * s.n_blocks;
+
+  if (warp == s.tile_h) {
+    // producer warp: per item and chunk, the halo, then the chunk's 9 weight tiles
+    int hs = 0, hph = 0, ws = 0, wph = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Tile tile = tile_of(s, item / s.n_blocks);
+      const int n0 = item % s.n_blocks * BN;
+      const bool load_weights = !pipe.resident || item == static_cast<int>(blockIdx.x);
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        mbar_wait(halo_empty(hs), hph ^ 1);
+        const uint32_t halo = halo0 + hs * pipe.halo_stride;
+        if (pipe.tma) {
+          if (lane == 0) {
+            mbar_expect_tx(halo_full(hs), pipe.halo_bytes);
+            tma_load_4d(halo, &x_map, halo_full(hs), chunk * KC, tile.w0 - 1, tile.h0 - 1, tile.b);
+          }
         } else {
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (c + j < s.ci) u.e[j] = src[j];
+          load_halo_plain<KC>(x, s, smem_raw + (halo - raw), tile, chunk * KC, lane);
+          mbar_arrive(halo_full(hs));
+        }
+        if (++hs == hs_n) hs = 0, hph ^= 1;
+        if (!load_weights) continue;
+        for (int tap = 0; tap < 9; ++tap) {
+          if (!pipe.resident) mbar_wait(weight_empty(ws), wph ^ 1);
+          if (lane == 0) {
+            mbar_expect_tx(weight_full(ws), pipe.weight_bytes);
+            tma_load_2d(weight0 + ws * pipe.weight_bytes, &w_map, weight_full(ws), tap * s.ci_pad + chunk * KC,
+                        n0);
+          }
+          if (++ws == ws_n) ws = 0, wph ^= 1;
         }
       }
-      *reinterpret_cast<uint4*>(&sx[p * LDS_BF16 + (i & 1) * 8]) = u.v;
     }
-    // this chunk's 16 channels of every (tap, out channel) row
-    for (int i = tid; i < 9 * BN * 2; i += THREADS) {
-      const int row = i >> 1, half = i & 1;  // row = n * 9 + tap
-      const int n = row / 9, tap = row % 9;
-      const uint4 v = *reinterpret_cast<const uint4*>(
-          w + (static_cast<int64_t>(n0 + n) * 9 + tap) * s.ci_pad + k0 + half * 8);
-      *reinterpret_cast<uint4*>(&sw[(tap * BN + n) * LDS_BF16 + half * 8]) = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // A rows: the 16 pixels of output row 2*warp_m+mi, i.e. halo pixels
-        // (row + dy, col + dx); A cols: the chunk's channels
-        const uint16_t* base =
-            sx + ((2 * warp_m + mi + dy) * HALO_W + dx) * LDS_BF16 + 2 * t;
-        a[mi][0] = lds32(base + g * LDS_BF16);
-        a[mi][1] = lds32(base + (g + 8) * LDS_BF16);
-        a[mi][2] = lds32(base + g * LDS_BF16 + 8);
-        a[mi][3] = lds32(base + (g + 8) * LDS_BF16 + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint16_t* base = sw + (tap * BN + warp_n * 32 + ni * 8 + g) * LDS_BF16 + 2 * t;
-        b[ni][0] = lds32(base);
-        b[ni][1] = lds32(base + 8);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
+    return;
   }
 
-  // epilogue: f32 bias, ReLU, one rounding to bf16
-  const bool pairs = s.co % 2 == 0;
+  // consumers: warp w computes output row w (16 pixels) by BN channels
+  const int row = warp;
+  const int g = lane >> 2, t = lane & 3;
+  // A rows: the 16 pixels of output row `row` shifted by (dy, dx) in the
+  // halo; lanes 0-15 give the rows' first 8 channels, lanes 16-31 the next 8
+  const uint32_t lane_off = (row * HALO_W + (lane & 15)) * PIX_BYTES + (lane >> 4) * 16;
+  int hs = 0, hph = 0, ws = 0, wph = 0, prev_ws = -1;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Tile tile = tile_of(s, item / s.n_blocks);
+    const int n0 = item % s.n_blocks * BN;
+    float acc[BN / 2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int h = tile.h0 + 2 * warp_m + mi;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int chunk = 0; chunk < chunks; ++chunk) {
+      mbar_wait(halo_full(hs), hph);
+      const uint32_t halo = halo0 + hs * pipe.halo_stride;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int n = n0 + warp_n * 32 + ni * 8 + 2 * t;
-      if (n >= s.co) continue;
-      const float b0 = bias[n];
-      const float b1 = n + 1 < s.co ? bias[n + 1] : 0.f;
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t pix = lane_off + ((tap / 3) * HALO_W + tap % 3) * PIX_BYTES;
+        uint32_t a[KSTEPS][4];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {  // accumulator rows g and g + 8
-        const int wc = tile.w0 + g + 8 * half;
-        if (!in_image(s, h, wc)) continue;
-        const float v0 = fmaxf(acc[mi][ni][2 * half] + b0, 0.f);
-        const float v1 = fmaxf(acc[mi][ni][2 * half + 1] + b1, 0.f);
-        __nv_bfloat16* dst = out + pixel_index(s, tile.b, h, wc) * s.co + n;
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        for (int k = 0; k < KSTEPS; ++k) ldmatrix_x4(a[k], halo + swizzle<KC>(pix + k * 32));
+        const int stage = pipe.resident ? chunk * 9 + tap : ws;
+        mbar_wait(weight_full(stage), pipe.resident ? 0 : wph);
+        wgmma_fence();
+        const uint64_t desc = weight_desc<KC>(weight0 + stage * pipe.weight_bytes);
+#pragma unroll
+        for (int k = 0; k < KSTEPS; ++k) Wgmma<BN>::mma(acc, a[k], desc + 2 * k);  // +32 bytes a k16 step
+        wgmma_commit();
+        // the previous tap's MMAs are done: release its weight stage. The
+        // last tap drains the pipeline, so that no wgmma is in flight across
+        // the chunk loop, whose next pass redefines the A registers (ptxas
+        // serializes every wgmma otherwise), and only then releases the
+        // halo stage: its wgmmas have consumed the registers that the last
+        // ldmatrix filled, so that ldmatrix has read the stage
+        if (tap < 8) {
+          wgmma_wait<1>();
         } else {
-          dst[0] = __float2bfloat16(v0);
-          if (n + 1 < s.co) dst[1] = __float2bfloat16(v1);
+          wgmma_wait<0>();
+          mbar_arrive(halo_empty(hs));
+        }
+        if (!pipe.resident) {
+          if (prev_ws >= 0) mbar_arrive(weight_empty(prev_ws));
+          prev_ws = tap < 8 ? ws : -1;
+          if (tap == 8) mbar_arrive(weight_empty(ws));
+          if (++ws == ws_n) ws = 0, wph ^= 1;
+        }
+      }
+      if (++hs == hs_n) hs = 0, hph ^= 1;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+    // epilogue: f32 bias, ReLU, one rounding to bf16. Accumulators 4 nb .. 4 nb + 3
+    // hold n8 block nb: rows g (the first two) and g + 8, channels 8 nb + 2t, +1.
+    // A lane stores channel pairs (4 bytes) where C_out is even, a lane quad 16
+    // contiguous bytes; the stores come after all the pairs of 32 channels.
+    const int h = tile.h0 + row;
+    const bool pairs = s.co % 2 == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int w = tile.w0 + g + 8 * half;
+      const bool inside = h < s.height && w < s.width;
+      __nv_bfloat16* dst = out + pixel_index(s, tile.b, h, w) * s.co;
+#pragma unroll
+      for (int j = 0; j < BN / 32; ++j) {
+        __nv_bfloat162 v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int n = n0 + 32 * j + 8 * q + 2 * t;
+          const float b0 = n < s.co ? bias[n] : 0.f;
+          const float b1 = n + 1 < s.co ? bias[n + 1] : 0.f;
+          const int i = 4 * (4 * j + q) + 2 * half;
+          v[q] = __floats2bfloat162_rn(fmaxf(acc[i] + b0, 0.f), fmaxf(acc[i + 1] + b1, 0.f));
+        }
+        if (inside) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int n = n0 + 32 * j + 8 * q + 2 * t;
+            if (pairs) {
+              if (n < s.co) *reinterpret_cast<__nv_bfloat162*>(dst + n) = v[q];
+            } else {
+              if (n < s.co) dst[n] = v[q].x;
+              if (n + 1 < s.co) dst[n + 1] = v[q].y;
+            }
+          }
         }
       }
     }
@@ -210,20 +547,23 @@ __global__ void __launch_bounds__(4 * BN)
 
 // ---------------------------------------------------------------- f32, FMA
 
+constexpr int TH_F32 = 8;
+constexpr int KC_F32 = 16;
+constexpr int HALO_PIX_F32 = (TH_F32 + 2) * HALO_W;
 constexpr int BN_F32 = 32;
-constexpr int LDS_F32 = KC + 1;  // odd stride: a warp's 8 pixel groups read 8 distinct banks
+constexpr int LDS_F32 = KC_F32 + 1;  // odd stride: a warp's 8 pixel groups read 8 distinct banks
 
 // 128 threads; thread = 4 consecutive pixels of one tile row x 8 out channels.
 __global__ void __launch_bounds__(128)
     conv3x3_f32_fma(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ bias, float* __restrict__ out, Shape s) {
-  __shared__ float sx[HALO_PIX * LDS_F32];                 // [halo pixel][channel]
-  __shared__ __align__(16) float sw[9 * KC * BN_F32];      // [tap][channel][out channel]
+  __shared__ float sx[HALO_PIX_F32 * LDS_F32];                 // [halo pixel][channel]
+  __shared__ __align__(16) float sw[9 * KC_F32 * BN_F32];      // [tap][channel][out channel]
 
   const int tid = threadIdx.x;
   const int cg = tid & 3;                                  // out channels 8*cg .. 8*cg+7
   const int row = tid >> 4, col0 = ((tid >> 2) & 3) * 4;   // pixels (row, col0 .. col0+3)
-  const Tile tile = tile_of(s);
+  const Tile tile = tile_of(s, blockIdx.x);
   const int n0 = blockIdx.y * BN_F32;
 
   float acc[4][8];
@@ -232,17 +572,17 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < s.ci_pad; k0 += KC) {
-    for (int i = tid; i < HALO_PIX * KC; i += 128) {
-      const int p = i / KC, c = k0 + i % KC;
+  for (int k0 = 0; k0 < s.ci_pad; k0 += KC_F32) {
+    for (int i = tid; i < HALO_PIX_F32 * KC_F32; i += 128) {
+      const int p = i / KC_F32, c = k0 + i % KC_F32;
       const int h = tile.h0 + p / HALO_W - 1, wc = tile.w0 + p % HALO_W - 1;
-      sx[p * LDS_F32 + i % KC] =
+      sx[p * LDS_F32 + i % KC_F32] =
           in_image(s, h, wc) && c < s.ci ? x[pixel_index(s, tile.b, h, wc) * s.ci + c] : 0.f;
     }
-    for (int i = tid; i < 9 * KC * BN_F32; i += 128) {
-      const int k = i % KC, r = i / KC;  // r = n * 9 + tap
+    for (int i = tid; i < 9 * KC_F32 * BN_F32; i += 128) {
+      const int k = i % KC_F32, r = i / KC_F32;  // r = n * 9 + tap
       const int n = r / 9, tap = r % 9;
-      sw[(tap * KC + k) * BN_F32 + n] =
+      sw[(tap * KC_F32 + k) * BN_F32 + n] =
           w[(static_cast<int64_t>(n0 + n) * 9 + tap) * s.ci_pad + k0 + k];
     }
     __syncthreads();
@@ -250,9 +590,9 @@ __global__ void __launch_bounds__(128)
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3, dx = tap % 3;
       const float* xs = sx + ((row + dy) * HALO_W + col0 + dx) * LDS_F32;
-      const float* ws = sw + tap * KC * BN_F32 + cg * 8;
+      const float* ws = sw + tap * KC_F32 * BN_F32 + cg * 8;
 #pragma unroll
-      for (int k = 0; k < KC; ++k) {
+      for (int k = 0; k < KC_F32; ++k) {
         float xv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) xv[i] = xs[i * LDS_F32 + k];
@@ -282,47 +622,169 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// ---------------------------------------------------------------- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// error codes of this library beyond the runtime's
+constexpr int ERR_NO_LIBCUDA = 100000;  // libcuda.so.1 or cuTensorMapEncodeTiled not found
+constexpr int ERR_ENCODE = 100001;     // + CUresult: cuTensorMapEncodeTiled refused a map
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+CUtensorMapSwizzle swizzle_of(int chunk) {
+  return chunk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : chunk == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// Launches the persistent grid: as many blocks as are resident at once on
+// the device's SMs, at most one a work item.
+template <int BN, int KC>
+int launch_bf16(const CUtensorMap& xm, const CUtensorMap& wm, const uint16_t* x, const float* bias,
+                __nv_bfloat16* out, const Shape& s, const Pipe& pipe, long long items, int smem, int device,
+                cudaStream_t st) {
+  auto kernel = conv3x3_bf16_wgmma<BN, KC>;
+  const int threads = 32 * s.tile_h + 32;
+  // resident blocks on the whole device, cached by (device, threads, shared memory): the
+  // occupancy query costs more host time than the launch itself. A key's first launch
+  // also opens the kernel up to all of a block's shared memory on that device.
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, long long> resident_blocks;
+  long long resident;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = resident_blocks.find({device, threads, smem});
+    if (it == resident_blocks.end()) {
+      int per_sm = 0, sms = 0;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+      if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      it = resident_blocks.emplace(std::make_tuple(device, threads, smem), static_cast<long long>(per_sm) * sms).first;
+    }
+    resident = it->second;
+  }
+  const long long grid = items < resident ? items : resident;
+  kernel<<<static_cast<unsigned>(grid), threads, smem, st>>>(xm, wm, x, bias, out, s, pipe);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int dispatch_n(int block_n, const CUtensorMap& xm, const CUtensorMap& wm, const uint16_t* x, const float* bias,
+               __nv_bfloat16* out, const Shape& s, const Pipe& pipe, long long items, int smem, int device,
+               cudaStream_t st) {
+  switch (block_n) {
+    case 32: return launch_bf16<32, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
+    case 64: return launch_bf16<64, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
+    case 128: return launch_bf16<128, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
+    case 192: return launch_bf16<192, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// One stage: out = relu(conv3x3(x, w) + bias). x (batch, height, width, ci)
-// and out (batch, height, width, co) are contiguous NHWC in the dtype given
-// (0 = float32, 1 = bfloat16); w is (co rounded up to 64, 3, 3, ci_pad) in
-// the same dtype, zero past co and ci; bias is float32 (co,). Launches on
-// `stream` of `device` and returns cudaGetLastError() (0 on success).
-extern "C" int conv3x3_bias_relu(const void* x, const void* w, const void* bias, void* out,
-                                 int batch, int height, int width, int ci, int ci_pad, int co,
-                                 int dtype, int device, void* stream) {
-  if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || ci_pad < ci ||
-      ci_pad % KC != 0)
+// One bf16 stage: out = relu(conv3x3(x, w) + bias). x (batch, height, width,
+// ci) and out (batch, height, width, co) are contiguous NHWC bf16; w is
+// (co_pad, 3, 3, ci_pad) bf16, zero past co and ci; bias is float32 (co,).
+// The plan (chunk, block_n, tile_h, halo_stages, weight_stages, smem_bytes,
+// tma, resident) comes from the wrapper's launch_plan and is checked here. Launches
+// on `stream` of `device` and returns 0 on success, else a CUDA error code
+// or one of this library's (see conv_chain_error_string).
+extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w, const void* bias, void* out, int batch,
+                                      int height, int width, int ci, int ci_pad, int co, int co_pad, int chunk,
+                                      int block_n, int tile_h, int halo_stages, int weight_stages,
+                                      int smem_bytes, int tma, int resident, int device, void* stream) {
+  const bool chunk_ok = chunk == 16 || chunk == 32 || chunk == 64;
+  if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || !chunk_ok || ci_pad < ci ||
+      ci_pad % chunk != 0 || co_pad < co || (tile_h != 4 && tile_h != 8) || halo_stages < 1 ||
+      halo_stages > HALO_STAGES_MAX || weight_stages < 2 || weight_stages > WEIGHT_STAGES_MAX ||
+      (tma && (ci % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int halo_bytes = (tile_h + 2) * HALO_W * chunk * 2;
+  const Pipe pipe{halo_stages, weight_stages, halo_bytes, round_up(halo_bytes, 1024), block_n * chunk * 2, tma,
+                  resident};
+  const int n_blocks = (co + block_n - 1) / block_n;
+  if (smem_bytes != 2048 + halo_stages * pipe.halo_stride + weight_stages * pipe.weight_bytes ||
+      smem_bytes > SMEM_LIMIT || (resident && (weight_stages != 9 * ci_pad / chunk || n_blocks != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s{batch, height, width, ci, ci_pad, co, tile_h, (height + tile_h - 1) / tile_h, (width + TW - 1) / TW,
+                n_blocks};
+  const long long items = static_cast<long long>(batch) * s.tiles_h * s.tiles_w * n_blocks;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_LIBCUDA;
+  CUtensorMap xm{}, wm{};
+  const CUtensorMapSwizzle swz = swizzle_of(chunk);
+  if (tma) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ci), static_cast<cuuint64_t>(width),
+                                static_cast<cuuint64_t>(height), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ci) * 2, static_cast<cuuint64_t>(ci) * 2 * width,
+                                   static_cast<cuuint64_t>(ci) * 2 * width * height};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), HALO_W, static_cast<cuuint32_t>(tile_h + 2), 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = encode(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  }
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(9) * ci_pad, static_cast<cuuint64_t>(co_pad)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(9) * ci_pad * 2};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(block_n)};
+    const cuuint32_t unit[2] = {1, 1};
+    const CUresult r = encode(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  }
+  const auto* xb = static_cast<const uint16_t*>(x);
+  const auto* bb = static_cast<const float*>(bias);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 16: return dispatch_n<16>(block_n, xm, wm, xb, bb, ob, s, pipe, items, smem_bytes, device, st);
+    case 32: return dispatch_n<32>(block_n, xm, wm, xb, bb, ob, s, pipe, items, smem_bytes, device, st);
+    default: return dispatch_n<64>(block_n, xm, wm, xb, bb, ob, s, pipe, items, smem_bytes, device, st);
+  }
+}
+
+// One f32 stage, as above in float32; w is (co_pad >= co rounded up to 32,
+// 3, 3, ci_pad) with ci_pad a multiple of 16.
+extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* bias, void* out, int batch,
+                                     int height, int width, int ci, int ci_pad, int co, int device,
+                                     void* stream) {
+  if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || ci_pad < ci || ci_pad % KC_F32 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Shape s{batch, height, width, ci, ci_pad, co, (height + TH - 1) / TH, (width + TW - 1) / TW};
+  const Shape s{batch, height, width, ci, ci_pad, co, TH_F32, (height + TH_F32 - 1) / TH_F32, (width + TW - 1) / TW,
+                (co + BN_F32 - 1) / BN_F32};
   const long long blocks = static_cast<long long>(batch) * s.tiles_h * s.tiles_w;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned grid_x = static_cast<unsigned>(blocks);
-  if (dtype == 1) {
-    const auto* xb = static_cast<const uint16_t*>(x);
-    const auto* wb = static_cast<const uint16_t*>(w);
-    const bool vec = ci % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    auto* ob = static_cast<__nv_bfloat16*>(out);
-    const auto* bb = static_cast<const float*>(bias);
-    if (co <= 32) {
-      conv3x3_bf16_mma<32><<<dim3(grid_x, (co + 31) / 32), 128, 0, st>>>(xb, wb, bb, ob, s, vec);
-    } else {
-      conv3x3_bf16_mma<64><<<dim3(grid_x, (co + 63) / 64), 256, 0, st>>>(xb, wb, bb, ob, s, vec);
-    }
-  } else if (dtype == 0) {
-    conv3x3_f32_fma<<<dim3(grid_x, (co + BN_F32 - 1) / BN_F32), 128, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(out), s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  conv3x3_f32_fma<<<dim3(static_cast<unsigned>(blocks), (co + BN_F32 - 1) / BN_F32), 128, 0,
+                    static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x), static_cast<const float*>(w),
+                                                          static_cast<const float*>(bias), static_cast<float*>(out), s);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* conv_chain_error_string(int code) {
+  if (code == ERR_NO_LIBCUDA) return "libcuda.so.1 or its cuTensorMapEncodeTiled was not found";
+  if (code >= ERR_ENCODE) return "cuTensorMapEncodeTiled refused a tensor map (CUresult = code - 100001)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

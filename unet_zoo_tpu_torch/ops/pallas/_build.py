@@ -26,6 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel, kept in the build log
+    "-ldl",  # dlopen of libcuda.so.1, for cuTensorMapEncodeTiled
 )
 
 

@@ -6,7 +6,9 @@ b_{N-1})`` with zero padding, f32 accumulation, the bias added in f32, and
 each stage's result stored in ``x.dtype``. Weights are cast to ``x.dtype``.
 
 On CUDA tensors every stage is one launch of the hand-written kernel in
-``csrc/conv_chain.cu`` (see the note at its top for the design). On CPU
+``csrc/conv_chain.cu`` (see the note at its top for the design), with the
+bf16 launch's plan (tile, output channels a block, pipeline stages, shared
+memory, grid, halo loader) from ``launch_plan`` here. On CPU
 tensors the wrapper runs ``fused_conv_chain_reference``, the plain PyTorch
 version, which is also the kernel's oracle on the card. In the port this
 chain *is* the BN-free U-Net block (``models/blocks.py``).
@@ -32,6 +34,7 @@ package's HWIO.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence
 
@@ -45,17 +48,130 @@ from unet_zoo_tpu_torch.ops.pallas import _build
 # by assignment; the CPU path never moves it.
 launches = 0
 
-# The kernels stream input channels in whole chunks of 16 and write output
-# channels in tiles of up to 64, so ``pack_kernel`` zero-pads the weights to both.
-_CI_ALIGN = 16
+# The bf16 kernel streams input channels in K chunks of 16, 32 or 64 (the
+# narrowest that holds C_in, else 64 = ``_CI_ALIGN``), so ``pack_kernel``
+# zero-pads C_in to a whole number of chunks (``padded_ci``); output channels
+# are padded to 64. The f32 kernel reads the same layout in chunks of 16.
+_CHUNKS = (16, 32, 64)
+_CI_ALIGN = _CHUNKS[-1]
 _CO_ALIGN = 64
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# the card the plan is made for: an H100's SMs and the dynamic shared memory a block may have
+SM_COUNT = 132
+SMEM_LIMIT = 232448
+TILE_W = 16
+BLOCK_NS = (32, 64, 128, 192)  # wgmma widths; wider C_out takes 128-channel blocks along grid y
+HALO_STAGES = 2  # up to 4 where the weights stay resident
+_HALO_STAGES_MAX = 4
+WEIGHT_STAGES = 4  # up to 8 where the block has its SM's shared memory to itself anyway
+_WEIGHT_STAGES_MAX = 8
+_RESIDENT_STAGES_MAX = 54  # 6 chunks x 9 taps: the mbarriers' 1024 bytes
+_SMEM_FIXED = 2048  # 1024 bytes of alignment slack + 1024 for the mbarriers
+TMA_BOX_MAX = 256
+
+
+def chunk_width(ci: int) -> int:
+    """Input channels a K chunk of the bf16 kernel for C_in = ``ci``."""
+    return next((c for c in _CHUNKS if ci <= c), _CI_ALIGN)
+
+
+def padded_ci(ci: int) -> int:
+    return _round_up(ci, chunk_width(ci))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One bf16 stage's launch, as ``conv3x3_bias_relu_bf16`` takes and checks it.
+
+    A work item is ``tile_h`` x ``TILE_W`` output pixels (one consumer
+    warpgroup per 4 rows) by ``block_n`` output channels; the grid is
+    persistent (the launcher starts as many blocks as fit on the card at
+    once, each walking ``items`` / blocks work items). K runs over (chunk,
+    tap) with the input halo in a ring of ``halo_stages`` and the weight
+    tiles in a ring of ``weight_stages``; with ``resident`` the weights'
+    9 * chunks tiles all fit and stay in shared memory, loaded once a
+    block. ``loader`` is "tma" (a 4-D tensor map over NHWC) or "plain"
+    (masked loads by the producer warp, where TMA cannot take the input's
+    strides or alignment)."""
+
+    chunk: int
+    ci_pad: int
+    co_pad: int
+    block_n: int
+    tile_h: int
+    halo_stages: int
+    weight_stages: int
+    smem_bytes: int
+    items: int
+    threads: int
+    loader: str
+    resident: bool
+
+    @property
+    def halo_box(self) -> tuple:
+        """The TMA box over (C, W, H, B), innermost first."""
+        return (self.chunk, TILE_W + 2, self.tile_h + 2, 1)
+
+    @property
+    def weight_box(self) -> tuple:
+        """The TMA box over the packed weights (9 * C_in_pad, C_out_pad)."""
+        return (self.chunk, self.block_n)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(shape: tuple, co: int, aligned: bool = True, tile_h: Optional[int] = None,
+                halo_stages: Optional[int] = None, resident: Optional[bool] = None) -> LaunchPlan:
+    """The plan of one bf16 stage on x of NHWC ``shape`` -> ``co`` channels;
+    ``aligned`` says whether x's address is a multiple of 16 bytes.
+    ``tile_h``, ``halo_stages`` and ``resident`` replace the plan's own
+    choices (to time other plans); the rest follows from them."""
+    batch, height, width, ci = shape
+    chunk = chunk_width(ci)
+    block_n = next((n for n in BLOCK_NS if co <= n), 128)
+    tiles = batch * -(-width // TILE_W)
+    n_blocks = -(-co // block_n)
+    # 8-row tiles (two consumer warpgroups) unless they leave SMs idle
+    if tile_h is None:
+        tile_h = 8 if tiles * -(-height // 8) * n_blocks >= SM_COUNT else 4
+    halo_stride = _round_up((tile_h + 2) * (TILE_W + 2) * chunk * 2, 1024)
+    weight_bytes = block_n * chunk * 2
+    ci_pad = _round_up(ci, chunk)
+    all_weights = 9 * (ci_pad // chunk)
+    # resident only where two blocks still fit on an SM: one block alone
+    # cannot hide its own epilogue and waits (measured: 64 -> 64 channels
+    # went from 0.41 to 0.50 ms at bs512 with the weights resident, on an
+    # NVIDIA H100 80GB HBM3 at 700 W)
+    half = SMEM_LIMIT // 2 - 1024
+    if resident is None:
+        resident = (n_blocks == 1 and all_weights <= _RESIDENT_STAGES_MAX
+                    and _SMEM_FIXED + HALO_STAGES * halo_stride + all_weights * weight_bytes <= half)
+    if resident:
+        stages = all_weights
+        if halo_stages is None:
+            halo_stages = max((h for h in range(HALO_STAGES, _HALO_STAGES_MAX + 1)
+                               if _SMEM_FIXED + h * halo_stride + stages * weight_bytes <= half),
+                              default=HALO_STAGES)
+    else:
+        halo_stages, stages = halo_stages or HALO_STAGES, WEIGHT_STAGES
+        fixed = _SMEM_FIXED + halo_stages * halo_stride
+        if 2 * (fixed + stages * weight_bytes) > SMEM_LIMIT:  # one block an SM: fill its shared memory
+            stages = min(_WEIGHT_STAGES_MAX, (SMEM_LIMIT - fixed) // weight_bytes)
+    return LaunchPlan(
+        chunk=chunk, ci_pad=ci_pad, co_pad=_round_up(co, _CO_ALIGN), block_n=block_n,
+        tile_h=tile_h, halo_stages=halo_stages, weight_stages=stages,
+        smem_bytes=_SMEM_FIXED + halo_stages * halo_stride + stages * weight_bytes,
+        items=tiles * -(-height // tile_h) * n_blocks, threads=32 * tile_h + 32,
+        # TMA takes global strides in multiples of 16 bytes: C_in % 8 == 0
+        loader="tma" if ci % 8 == 0 and aligned else "plain",
+        resident=resident,
+    )
 
 
 def _check(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> None:
     if x.ndim != 4 or x.numel() == 0:
         raise ValueError(f"x must be a non-empty NHWC tensor, got shape {tuple(x.shape)}")
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not kernels or len(kernels) != len(biases):
         raise ValueError(f"need one bias per kernel and at least one stage, got "
@@ -89,8 +205,10 @@ def fused_conv_chain_reference(x, kernels, biases):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load()
-    lib.conv3x3_bias_relu.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.conv3x3_bias_relu.restype = ctypes.c_int
+    lib.conv3x3_bias_relu_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    lib.conv3x3_bias_relu_bf16.restype = ctypes.c_int
+    lib.conv3x3_bias_relu_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.conv3x3_bias_relu_f32.restype = ctypes.c_int
     lib.conv_chain_error_string.argtypes = [ctypes.c_int]
     lib.conv_chain_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,9 +220,10 @@ def _round_up(n: int, m: int) -> int:
 
 def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """OIHW kernel -> the CUDA kernel's weight layout: (C_out rounded up to 64,
-    3, 3, C_in rounded up to 16) in ``dtype``, zero past C_out and C_in, so
-    that for each output channel the 9 taps' input channels lie contiguous,
-    as the kernel streams them.
+    3, 3, ``padded_ci(C_in)``) in ``dtype``, zero past C_out and C_in, so
+    that for each output channel the 9 taps' input channels lie contiguous:
+    viewed as (C_out_pad, 9 * C_in_pad), K-major, each (chunk, tap) is one
+    TMA box of the bf16 kernel.
 
     ``out``, an earlier result for a kernel of the same shape, is refilled
     in place (its zero padding stays) and returned. Not differentiable."""
@@ -113,25 +232,33 @@ def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype, out: Optional[torch.Te
         # a normal tensor even under inference_mode, so that a refill after
         # it (a train step after an evaluation) is allowed
         with torch.inference_mode(False):
-            out = torch.zeros((_round_up(co, _CO_ALIGN), 3, 3, _round_up(ci, _CI_ALIGN)),
+            out = torch.zeros((_round_up(co, _CO_ALIGN), 3, 3, padded_ci(ci)),
                               dtype=dtype, device=kernel.device)
     with torch.no_grad():
         out[:co, :, :, :ci] = kernel.permute(0, 2, 3, 1)
     return out
 
 
-def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor,
+                  plan: Optional[LaunchPlan] = None) -> torch.Tensor:
+    """One stage on the card; a bf16 stage takes ``plan`` (by default its
+    ``launch_plan``)."""
     global launches
     lib = _lib()
     batch, height, width, ci = x.shape
     co = bias.shape[0]
     b = bias.to(torch.float32).contiguous()
     out = torch.empty((batch, height, width, co), dtype=x.dtype, device=x.device)
-    err = lib.conv3x3_bias_relu(
-        x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(),
-        batch, height, width, ci, packed.shape[-1], co, _DTYPE_CODES[x.dtype], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), packed.data_ptr(), b.data_ptr(), out.data_ptr(), batch, height, width, ci,
+            packed.shape[-1], co)
+    if x.dtype == torch.bfloat16:
+        p = plan or launch_plan(tuple(x.shape), co, x.data_ptr() % 16 == 0)
+        err = lib.conv3x3_bias_relu_bf16(
+            *args, packed.shape[0], p.chunk, p.block_n, p.tile_h, p.halo_stages, p.weight_stages,
+            p.smem_bytes, p.loader == "tma", p.resident, x.device.index, stream)
+    else:
+        err = lib.conv3x3_bias_relu_f32(*args, x.device.index, stream)
     if err:
         raise RuntimeError(
             f"conv3x3 kernel launch failed for x {tuple(x.shape)} -> {co} channels: "
@@ -211,7 +338,7 @@ def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     if len(packed) != len(kernels):
         raise ValueError(f"need one packed kernel per stage, got {len(packed)} for {len(kernels)} stages")
     for j, (k, w) in enumerate(zip(kernels, packed)):
-        want = (_round_up(k.shape[0], _CO_ALIGN), 3, 3, _round_up(k.shape[1], _CI_ALIGN))
+        want = (_round_up(k.shape[0], _CO_ALIGN), 3, 3, padded_ci(k.shape[1]))
         if tuple(w.shape) != want or w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
             raise ValueError(f"stage {j}: packed kernel must be contiguous {want} {x.dtype} on "
                              f"{x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")

@@ -17,7 +17,7 @@ import torch
 
 from unet_zoo_tpu_torch.data.augment import AugmentParams, sample_augment_params, warp_batch_2d
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig
-from unet_zoo_tpu_torch.models.registry import get_model
+from unet_zoo_tpu_torch.models.registry import get_model, resolve_device
 from unet_zoo_tpu_torch.training.schedule import plateau_init, plateau_update
 from unet_zoo_tpu_torch.training.state import TrainState
 
@@ -40,10 +40,11 @@ class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None, seed: Optional[int] = None):
         """Builds the model (weights drawn on the CPU from a generator
         seeded from ``seed``, default ``cfg.seed``, then moved to
-        ``device``), the optimizer and the train state."""
+        ``device``, by default the CUDA card), the optimizer and the train
+        state. Raises where no card is present and ``device`` is not given."""
         cfg.validate()
         self.cfg = cfg
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         seed = cfg.seed if seed is None else seed
         # two seeds split from one, as the JAX trainer splits its root key
         k_params, k_aug = torch.randint(2 ** 62, (2,), generator=torch.Generator().manual_seed(seed)).tolist()
