@@ -44,7 +44,20 @@ Phases, each printing its own lines:
    (loss) on the kernel's own function in plain PyTorch, computed from the
    f32 parameters; then train-step images/s on the kernel path and the
    plain path (every block on the plain version), the host's time to issue
-   one step on each, and the milliseconds of each phase of a step.
+   one step on each, and the milliseconds of each phase of a step;
+6. PHiSeg 2D (``phiseg_7_5_12``: filters 32/64/128/192/192/192/192, 5 latent
+   levels, 2 classes, 128x128), which launches no hand-written kernel (its
+   conv sequences carry BatchNorm and run as library ops, as in the JAX
+   package): (a) a batch-2 float32 forward with the mask, the loss and every
+   gradient on the card against the same weights and z noise on the CPU (TF32
+   off), in train mode and in eval mode, and the running statistics; (b) the
+   bf16 train step at batch 12 with the experiment's device augmentation for
+   PHISEG_STEPS steps from a fixed seed: no host sync inside a step, a
+   gradient in every parameter (an exact zero in each conv bias that
+   BatchNorm follows, which Adam's weight decay still moves), running
+   statistics that change, a falling loss and no conv-chain launch; (c) the
+   step's images/s (CUDA events), the host's time to issue one step, the ms
+   of each phase, and ``sample(x, 100)`` at batch 1 in ms an image.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -141,6 +154,28 @@ TIME_STEPS = 10  # steps a timed round; 2 rounds, each after a warm-up step
 # 2.1e-2 of max|grad|), later steps on the kernel's own rounding
 TRAIN_LOSS_RTOL = 2e-3
 TRAIN_GRAD_RTOL_OF_MAX = 0.06
+
+# phase 6: PHiSeg
+PHISEG_EXPERIMENT = "phiseg_7_5_12"
+PHISEG_PARITY_BATCH = 2
+PHISEG_STEPS = 30  # the loss must fall over them
+PHISEG_SAMPLES = 100
+# f32 card vs CPU, the same weights and eps. Eval mode (BatchNorm an affine
+# map of the running statistics): every output and gradient within
+# PHISEG_EVAL_OF_MAX of its max|ref|. Train mode: batch statistics over 8
+# values a channel at the coarsest level amplify rounding with depth (at
+# the published structure on the CPU, JAX against the port: outputs 5e-5 to
+# 1.7e-4 of max, the whole gradient 5e-4 to 3.9e-3 relative L2,
+# tests/test_torch_phiseg.py), so outputs within PHISEG_TRAIN_OF_MAX of
+# max|ref|, the gradient as one vector within PHISEG_TRAIN_GRAD_L2, the
+# running statistics within PHISEG_STATS_RTOL of each buffer's max; the loss terms within
+# PHISEG_LOSS_RTOL in both modes
+PHISEG_EVAL_OF_MAX = 1e-4
+PHISEG_EVAL_GRAD_OF_MAX = 5e-3
+PHISEG_TRAIN_OF_MAX = 1e-3
+PHISEG_TRAIN_GRAD_L2 = 2e-2
+PHISEG_STATS_RTOL = 1e-3
+PHISEG_LOSS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -431,14 +466,14 @@ def function_grads_agree(conv_chain, dev, gen) -> float:
     return worst
 
 
-def train_batches(n: int, dev):
-    """n batches of (TRAIN_BATCH, IMAGE, IMAGE, 1) noise from a fixed seed,
+def train_batches(n: int, dev, batch: int = TRAIN_BATCH):
+    """n batches of (batch, IMAGE, IMAGE, 1) noise from a fixed seed,
     labelled where a 9x9 box blur of the image is positive: a map a U-Net
     can learn, so the loss can fall."""
     gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((n * TRAIN_BATCH, 1, IMAGE, IMAGE), generator=gen, device=dev)
+    x = torch.randn((n * batch, 1, IMAGE, IMAGE), generator=gen, device=dev)
     y = torch.nn.functional.avg_pool2d(x, 9, 1, 4) > 0
-    return (x.view(n, TRAIN_BATCH, IMAGE, IMAGE, 1), y.view(n, TRAIN_BATCH, IMAGE, IMAGE).long())
+    return (x.view(n, batch, IMAGE, IMAGE, 1), y.view(n, batch, IMAGE, IMAGE).long())
 
 
 def train_slice(conv_chain, dev, card: str) -> dict:
@@ -578,6 +613,164 @@ def train_slice(conv_chain, dev, card: str) -> dict:
             "host_ms": kernel_host, "plain_host_ms": plain_host}
 
 
+def phiseg_run(model, x, y, post_eps, prior_eps, train: bool):
+    """One forward with the mask, the loss and its gradients, in train or
+    eval mode: (outputs, aux, {parameter: grad})."""
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    out = model(x, y, post_eps=post_eps, prior_eps=prior_eps)
+    loss, aux = model.loss(out, y)
+    loss.backward()
+    return out, aux, {n: p.grad for n, p in model.named_parameters()}
+
+
+def phiseg_parity(dev) -> None:
+    """(a): float32, the same weights and z noise on the card and the CPU."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.models.registry import get_model
+
+    cfg = get_experiment(PHISEG_EXPERIMENT)
+    models = {d: get_model("phiseg", **cfg.model_kwargs(), device=d, generator=torch.Generator().manual_seed(5))
+              for d in ("cpu", dev)}
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((PHISEG_PARITY_BATCH, IMAGE, IMAGE, 1), generator=gen)
+    y = (torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 9, 1, 4) > 0)[:, 0].long()
+    eps = {kind: [torch.randn((PHISEG_PARITY_BATCH, IMAGE >> (lvl + 2), IMAGE >> (lvl + 2), cfg.zdim), generator=gen)
+                  for lvl in range(cfg.latent_levels)] for kind in ("post", "prior")}
+    for train in (True, False):
+        mode = "train" if train else "eval"
+        if not train:  # the same running statistics on both sides
+            models[dev].load_state_dict(models["cpu"].state_dict())
+        runs = {}
+        for d, m in models.items():
+            to = (lambda t: t.to(d))  # noqa: E731
+            runs[d] = phiseg_run(m, to(x), to(y), [to(e) for e in eps["post"]], [to(e) for e in eps["prior"]], train)
+        (out_c, aux_c, g_c), (out_g, aux_g, g_g) = runs["cpu"], runs[dev]
+        of_max = PHISEG_TRAIN_OF_MAX if train else PHISEG_EVAL_OF_MAX
+        out_err = 0.0
+        for key in ("s_list", "post_mu", "post_sigma", "prior_mu", "prior_sigma"):
+            for lvl, (a, b) in enumerate(zip(out_g[key], out_c[key])):
+                err = (a.detach().cpu() - b.detach()).abs().max().item() / b.detach().abs().max().item()
+                out_err = max(out_err, err)
+                check(err <= of_max, f"f32 {mode} {key}[{lvl}]: {err:.3e} of max|ref| > {of_max}")
+        loss_err = 0.0
+        for key in ("loss", "kl", "recon"):
+            err = abs(aux_g[key].item() - aux_c[key].item()) / abs(aux_c[key].item())
+            loss_err = max(loss_err, err)
+            check(err <= PHISEG_LOSS_RTOL, f"f32 {mode} {key}: rel diff {err:.3e} > {PHISEG_LOSS_RTOL}")
+        for n in g_c:
+            check(g_c[n] is not None and g_g[n] is not None, f"f32 {mode}: no gradient in {n}")
+        per_tensor, worst_name = max((((g_g[n].cpu() - g_c[n]).abs().max() / g_c[n].abs().max()).item(), n)
+                                     for n in g_c if g_c[n].any())
+        flat = {d: torch.cat([g[n].detach().cpu().flatten() for n in g_c]) for d, g in (("cpu", g_c), (dev, g_g))}
+        l2 = ((flat[dev] - flat["cpu"]).norm() / flat["cpu"].norm()).item()
+        if train:
+            check(l2 <= PHISEG_TRAIN_GRAD_L2, f"f32 train gradient: rel L2 {l2:.3e} > {PHISEG_TRAIN_GRAD_L2}")
+            gpu_buffers = dict(models[dev].named_buffers())
+            stats_err = max(((gpu_buffers[n].cpu() - b).abs().max() / b.abs().max()).item()
+                            for n, b in models["cpu"].named_buffers())
+            check(stats_err <= PHISEG_STATS_RTOL, f"running statistics: rel diff {stats_err:.3e}")
+            tol = f"tol L2 {PHISEG_TRAIN_GRAD_L2}); running statistics rel {stats_err:.3e} (tol {PHISEG_STATS_RTOL}"
+        else:
+            check(per_tensor <= PHISEG_EVAL_GRAD_OF_MAX, f"f32 eval gradient {worst_name}: {per_tensor:.3e} of max|g|")
+            tol = f"tol {PHISEG_EVAL_GRAD_OF_MAX}"
+        log(f"[phiseg] f32 {mode} mode, card vs CPU, batch {PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs "
+            f"{out_err:.3e} of max|ref| (tol {of_max}), loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), "
+            f"gradient rel L2 {l2:.3e}, worst tensor {worst_name} {per_tensor:.3e} of its max|g| ({tol})")
+    del models
+
+
+def phiseg_slice(conv_chain, dev, card: str) -> None:
+    """(b) and (c): the bf16 phiseg_7_5_12 train step, its times, and sample()."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment(PHISEG_EXPERIMENT), dtype="bfloat16")
+    xs, ys = train_batches(PHISEG_STEPS, dev, cfg.batch_size)
+    trainer = Trainer(cfg, dev, seed=0)
+    model = trainer.state.model
+    params = dict(model.named_parameters())
+    heads = {f"likelihood.head{j}.conv.bias" for j in range(cfg.latent_levels)}
+    free = [n for n in params if n.endswith("conv.bias") and n not in heads]
+    before = {n: params[n].detach().clone() for n in free}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    missing = [n for n, p in params.items() if p.grad is None]
+    check(not missing, f"no gradient in {missing}")
+    nonzero = [n for n in free if bool(params[n].grad.ne(0).any())]
+    check(not nonzero, f"conv biases before BatchNorm with a non-zero gradient: {nonzero}")
+    still = [n for n in free if torch.equal(params[n].detach(), before[n])]
+    check(not still, f"conv biases before BatchNorm that Adam did not move: {still}")
+    dead = [n for n in params if n not in free and not bool(params[n].grad.ne(0).any())]
+    check(not dead, f"all-zero gradient in {dead}")
+    log(f"[phiseg] step 1 ({first_s:.2f} s with warm-up): gradients in all {len(params)} parameters; the "
+        f"{len(free)} conv biases that BatchNorm follows have an exact zero gradient and moved by Adam's weight "
+        f"decay alone")
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
+    for i in range(1, PHISEG_STEPS):
+        losses.append(trainer.train_step(xs[i], ys[i])["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(conv_chain.launches == 0, f"the PHiSeg step launched the conv-chain kernel {conv_chain.launches} times")
+    same = [n for n, b in model.named_buffers() if torch.equal(b, stats0[n])]
+    check(not same, f"running statistics that did not change: {same}")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses.tolist()}")
+    tail = losses[-5:].mean().item()
+    log(f"[phiseg] {PHISEG_STEPS} steps bs{cfg.batch_size} {IMAGE}x{IMAGE} bf16, device augmentation: no host "
+        f"sync inside a step, {conv_chain.launches} conv-chain launches, {len(stats0)} running statistics all "
+        f"changed; loss {losses[0]:.2f} -> mean of the last 5 {tail:.2f}")
+    log(f"[phiseg] losses: {' '.join(f'{v:.2f}' for v in losses.tolist())}")
+    check(tail < losses[0].item(), f"loss did not fall: {losses[0]:.2f} -> {tail:.2f}")
+
+    step_ms = min(cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), TIME_STEPS) for _ in range(2))
+    hosts = []
+    for _ in range(TIME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(xs[0], ys[0])
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(TIME_STEPS)]
+    for ev in events:
+        ev[0].record()
+        x, y = trainer.augment(xs[0], ys[0])
+        ev[1].record()
+        loss, _ = trainer.forward_loss(x, y)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update(loss)
+        ev[4].record()
+    torch.cuda.synchronize()
+    phases = [sum(ev[k].elapsed_time(ev[k + 1]) for ev in events) / TIME_STEPS for k in range(4)]
+    host = min(hosts)
+    log(f"[time] PHiSeg train step bs{cfg.batch_size} {IMAGE}x{IMAGE} bf16 with device augmentation: "
+        f"{step_ms:.3f} ms, {cfg.batch_size / step_ms * 1e3:.1f} images/s | card: {card}")
+    log(f"[time] PHiSeg host time to issue one train step onto an idle device, min / median of {TIME_STEPS}: "
+        f"{host:.3f} / {sorted(hosts)[TIME_STEPS // 2]:.3f} ms | card: {card}")
+    log(f"[time] PHiSeg train step phases, ms/step: augmentation {phases[0]:.3f}, forward+loss {phases[1]:.3f}, "
+        f"backward {phases[2]:.3f}, optimizer+plateau {phases[3]:.3f} | card: {card}")
+
+    x1 = xs[0][:1]
+    with torch.inference_mode():
+        samples = model.sample(x1, PHISEG_SAMPLES)
+        sample_ms = min(cuda_ms(lambda: model.sample(x1, PHISEG_SAMPLES), 3) for _ in range(2))
+    check(samples.shape == (1, PHISEG_SAMPLES, IMAGE, IMAGE, cfg.n_classes) and samples.dtype == torch.bfloat16,
+          f"samples {tuple(samples.shape)} {samples.dtype}")
+    check(bool(torch.isfinite(samples).all()), "non-finite samples")
+    spread = samples.float().std(dim=1).mean().item()
+    check(spread > 0, "the samples are all the same")
+    log(f"[time] PHiSeg sample(x, {PHISEG_SAMPLES}) at batch 1 bf16: {sample_ms:.3f} ms an image (logits "
+        f"{tuple(samples.shape)}, mean std over the samples {spread:.3e}; metrics not computed yet) | card: {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -696,6 +889,13 @@ def main() -> int:
     # 5. the train slice
     backward_err = function_grads_agree(conv_chain, dev, gen)
     train = train_slice(conv_chain, dev, card)
+    torch.cuda.empty_cache()
+
+    # 6. PHiSeg: f32 parity with the CPU, the bf16 train step, times
+    t0 = time.perf_counter()
+    phiseg_parity(dev)
+    phiseg_slice(conv_chain, dev, card)
+    log(f"[phiseg] phase 6 took {time.perf_counter() - t0:.1f} s")
 
     main = blocks[BATCH]
     log(json.dumps({"kernels": [{

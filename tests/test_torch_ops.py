@@ -6,8 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+import optax
+
 from unet_zoo_tpu import ops as jops
 from unet_zoo_tpu.ops import init as jinit
+from unet_zoo_tpu.ops.norm import BatchNorm as JaxBatchNorm
+from unet_zoo_tpu.training.trainer import adam_coupled_l2 as jax_adam_coupled_l2
 from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.bridge import load_jax_params
 from unet_zoo_tpu_torch.ops import init as tinit
@@ -197,6 +201,109 @@ class TestConv:
         for b, a, w in zip(before, seq._packed_kernels(weights, torch.float32), weights):
             assert not torch.equal(a, b)
             assert torch.equal(a, pack_kernel(w, torch.float32))
+
+
+class TestBatchNorm:
+    """The port's BatchNorm (``F.batch_norm`` on the f32 input, Welford
+    variance) against the JAX module (one-pass variance): float32 rounding
+    apart, in f32 and bf16, train and eval mode, with the running update."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("train", [True, False])
+    def test_matches_jax(self, dtype, train):
+        rng = np.random.default_rng(20)
+        x = (_np(rng, 2, 7, 5, 6) * 2 + 1).astype(np.float32)  # mean 1, std 2
+        scale, bias = rng.uniform(0.5, 1.5, 6).astype(np.float32), _np(rng, 6)
+        mean, var = _np(rng, 6), rng.uniform(0.5, 2.0, 6).astype(np.float32)
+        variables = {"params": {"scale": scale, "bias": bias}, "batch_stats": {"mean": mean, "var": var}}
+        jx = jnp.asarray(x, dtype)
+        want, mut = JaxBatchNorm().apply(variables, jx, use_running_average=not train, mutable=["batch_stats"])
+        bn = load_jax_params(ops.BatchNorm(6), variables["params"], variables["batch_stats"]).train(train)
+        got = bn(torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype)))
+        assert got.dtype == getattr(torch, dtype)
+        # f32: rounding; bf16: both round the same f32 value once, 1 ulp apart at most
+        tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+        np.testing.assert_allclose(got.float().detach().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   rtol=tol, atol=tol)
+        stats = mut["batch_stats"] if train else variables["batch_stats"]
+        np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(stats["mean"]), rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["var"]), rtol=1e-6)
+        assert not train or not np.allclose(stats["var"], var)  # the update happened
+
+    def test_gradients_match_jax(self):
+        rng = np.random.default_rng(21)
+        x, g = _np(rng, 3, 4, 5, 4) + 0.5, _np(rng, 3, 4, 5, 4)
+        params = {"scale": rng.uniform(0.5, 1.5, 4).astype(np.float32), "bias": _np(rng, 4)}
+        stats = {"mean": np.zeros(4, np.float32), "var": np.ones(4, np.float32)}
+
+        def f(p, a):
+            y, _ = JaxBatchNorm().apply({"params": p, "batch_stats": stats}, a, use_running_average=False,
+                                        mutable=["batch_stats"])
+            return jnp.sum(y * g)
+
+        want_p, want_x = jax.grad(f, argnums=(0, 1))(params, jnp.asarray(x))
+        bn = load_jax_params(ops.BatchNorm(4), params, stats)
+        tx = torch.from_numpy(x).requires_grad_()
+        (bn(tx) * torch.from_numpy(g)).sum().backward()
+        for got, want in ((tx.grad, want_x), (bn.weight.grad, want_p["scale"]), (bn.bias.grad, want_p["bias"])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5 * np.abs(np.asarray(want)).max())
+
+
+class TestConvSeqNorm:
+    def test_matches_jax_conv_seq(self):
+        """``ConvSeq(norm=True)``: conv + BN + ReLU per layer, the running
+        statistics updated in train mode, read in eval mode."""
+        rng = np.random.default_rng(22)
+        a, b = _np(rng, 2, 9, 7, 3), _np(rng, 2, 9, 7, 2)
+        jmod = jops.ConvSeq(5, depth=2)
+        variables = jmod.init(jax.random.PRNGKey(0), (jnp.asarray(a), jnp.asarray(b)), train=True)
+        want, mut = jmod.apply(variables, (jnp.asarray(a), jnp.asarray(b)), train=True, mutable=["batch_stats"])
+        seq = ops.ConvSeq(5, 5, 2, norm=True, init_scheme="torch_default")
+        load_jax_params(seq, jax.device_get(variables["params"]), jax.device_get(variables["batch_stats"]))
+        got = seq((torch.from_numpy(a), torch.from_numpy(b)))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+        for i in range(2):
+            np.testing.assert_allclose(getattr(seq, f"conv{i}").bn.running_var.numpy(),
+                                       np.asarray(mut["batch_stats"][f"conv{i}"]["bn"]["var"]), rtol=1e-6)
+        want_eval = jmod.apply({"params": variables["params"], **mut}, (jnp.asarray(a), jnp.asarray(b)), train=False)
+        with torch.no_grad():
+            got_eval = seq.eval()((torch.from_numpy(a), torch.from_numpy(b)))
+        np.testing.assert_allclose(got_eval.numpy(), np.asarray(want_eval), atol=1e-5)
+
+    def test_norm_false_routes_to_the_fused_chain(self, monkeypatch):
+        from unet_zoo_tpu_torch.ops import conv
+
+        calls = []
+        chain = conv.fused_conv_chain
+        monkeypatch.setattr(conv, "fused_conv_chain", lambda *a, **k: calls.append(1) or chain(*a, **k))
+        x = torch.from_numpy(_np(np.random.default_rng(23), 1, 6, 6, 3))
+        ops.ConvSeq(3, 4, 3)(x)
+        assert calls == [1]
+        ops.ConvSeq(3, 4, 3, norm=True)(x)
+        assert calls == [1]
+        assert "conv0.bn.weight" in ops.ConvSeq(3, 4, 1, norm=True).state_dict()
+        assert not any("bn" in k for k in ops.ConvSeq(3, 4, 1).state_dict())
+
+    def test_grad_free_bias_takes_the_decay_only_update(self):
+        """The bias of a conv that BN follows gets an exact zero gradient (not
+        None), so one ``adam_coupled_l2`` step moves it as optax's
+        ``add_decayed_weights -> adam`` moves a stop_gradient bias."""
+        from unet_zoo_tpu_torch.training import adam_coupled_l2
+
+        layer = ops.ConvBNAct(3, 4, generator=torch.Generator().manual_seed(0))
+        x = torch.from_numpy(_np(np.random.default_rng(24), 2, 5, 5, 3))
+        opt = adam_coupled_l2(layer.parameters(), 1e-3, 1e-5)
+        (layer(x) ** 2).sum().backward()
+        assert layer.conv.bias.grad is not None and not layer.conv.bias.grad.any()
+        assert layer.conv.weight.grad.any()
+        p0 = layer.conv.bias.detach().numpy().copy()
+        opt.step()
+        tx = jax_adam_coupled_l2(1e-3, 1e-5)
+        jp = jnp.asarray(p0)
+        updates, _ = tx.update(jnp.zeros_like(jp), tx.init(jp), jp)
+        want = np.asarray(optax.apply_updates(jp, updates))
+        np.testing.assert_allclose(layer.conv.bias.detach().numpy(), want, rtol=2.0 ** -23, atol=1e-4 * 1e-3)
+        assert np.all(np.abs(want - p0) > 0.9e-3)  # about lr * sign(p)
 
 
 class TestInit:

@@ -141,7 +141,7 @@ def test_bridge_checks_keys_and_shapes():
 def test_registry_and_unported_modes():
     assert isinstance(get_model("unet", num_classes=2, num_filters=FILTERS, device="cpu"), UNet)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("phiseg", num_classes=2)
+        get_model("prob_unet", num_classes=2)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("resnet")
     with pytest.raises(NotImplementedError):
@@ -162,7 +162,8 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.experiments, unet_zoo_tpu_torch.experiments.config, "
             "unet_zoo_tpu_torch.experiments.registry, unet_zoo_tpu_torch.training, "
             "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "
-            "unet_zoo_tpu_torch.training.trainer; "
+            "unet_zoo_tpu_torch.training.trainer, unet_zoo_tpu_torch.models.phiseg, "
+            "unet_zoo_tpu_torch.models.prob_unet, unet_zoo_tpu_torch.ops.norm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'triton', 'unet_zoo_tpu')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,

@@ -1,15 +1,18 @@
-"""Carry the JAX package's parameters into the port's ``state_dict``.
+"""Carry the JAX package's variables into the port's ``state_dict``.
 
-Input: the nested dict of numpy arrays that ``jax.device_get(variables["params"])``
-returns for a model of ``unet_zoo_tpu``. A leaf at ``a/b/.../kernel`` becomes
-``a.b....weight`` and ``a/b/.../bias`` becomes ``a.b....bias``. Conv kernels
+Input: the nested dicts of numpy arrays that ``jax.device_get(variables["params"])``
+and, for a model with BatchNorm, ``jax.device_get(variables["batch_stats"])``
+return for a model of ``unet_zoo_tpu``. A leaf at ``a/b/.../kernel`` becomes
+``a.b....weight``, ``.../bias`` becomes ``....bias`` and a BatchNorm's
+``.../scale`` becomes ``....weight``; in ``batch_stats``, ``.../mean`` and
+``.../var`` become ``....running_mean`` and ``....running_var``. Conv kernels
 go from flax's HWIO to the port's OIHW (``nn.Conv2d`` layout) by
 ``transpose(3, 2, 0, 1)``. Values stay float32 on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,26 +29,32 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-def _torch_name(path: str) -> str:
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_name(path: str, leaves: Mapping[str, str]) -> str:
     *scope, leaf = path.split("/")
-    if leaf not in ("kernel", "bias"):
-        raise KeyError(f"unexpected parameter '{path}' (only conv kernel/bias are ported)")
-    return ".".join(scope + ["weight" if leaf == "kernel" else "bias"])
+    if leaf not in leaves:
+        raise KeyError(f"unexpected leaf '{path}' (expected one of {sorted(leaves)})")
+    return ".".join(scope + [leaves[leaf]])
 
 
-def state_dict_from_jax(params: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """Map JAX ``params`` onto ``model``'s state_dict keys and shapes.
+def state_dict_from_jax(params: Mapping[str, Any], model: torch.nn.Module,
+                        batch_stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """Map JAX ``params`` (and ``batch_stats``) onto ``model``'s state_dict
+    keys and shapes.
 
     Raises ``KeyError`` on a key missing from either side and ``ValueError``
     on a shape that does not match.
     """
     expected = model.state_dict()
     out = {}
-    for path, value in _flatten(params).items():
-        name = _torch_name(path)
-        if value.ndim == 4:  # HWIO -> OIHW
-            value = value.transpose(3, 2, 0, 1)
-        out[name] = torch.tensor(value, dtype=torch.float32)
+    for tree, leaves in ((params, _PARAM_LEAVES), (batch_stats or {}, _STAT_LEAVES)):
+        for path, value in _flatten(tree).items():
+            if value.ndim == 4:  # HWIO -> OIHW
+                value = value.transpose(3, 2, 0, 1)
+            out[_torch_name(path, leaves)] = torch.tensor(value, dtype=torch.float32)
     missing = sorted(set(expected) - set(out))
     extra = sorted(set(out) - set(expected))
     if missing or extra:
@@ -58,7 +67,9 @@ def state_dict_from_jax(params: Mapping[str, Any], model: torch.nn.Module) -> Di
     return out
 
 
-def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> torch.nn.Module:
-    """Load JAX ``params`` into ``model`` in place and return it."""
-    model.load_state_dict(state_dict_from_jax(params, model))
+def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any],
+                    batch_stats: Optional[Mapping[str, Any]] = None) -> torch.nn.Module:
+    """Load JAX ``params`` (and ``batch_stats``, which a model with BatchNorm
+    needs) into ``model`` in place and return it."""
+    model.load_state_dict(state_dict_from_jax(params, model, batch_stats))
     return model

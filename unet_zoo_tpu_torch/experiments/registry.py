@@ -1,6 +1,8 @@
 """Built-in experiments, a jax-free copy of ``unet_zoo_tpu.experiments.registry``.
 
-Only the ``unet`` entry is ported; the JAX package's other names raise
+The ``unet`` entry and the plain 2D LIDC PHiSeg entries are ported (each
+with the JAX entry's values of the fields the port carries); the JAX
+package's other names (reversible, UZH prostate, ProbUNet, BraTS) raise
 ``NotImplementedError``.
 """
 
@@ -26,19 +28,51 @@ def _unet() -> ExperimentConfig:
         experiment_name="Unet",
         model="unet",
         filter_channels=(32, 64, 128, 192),
+        latent_levels=3,
         n_classes=2,  # reference file says 1 but its own loss needs >= 2
+        batch_size=12,
         image_size=(128, 128),
         augmentation_options=_LIDC_AUG,
     )
 
 
-EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {"unet": _unet}
+def _phiseg_lidc(batch_size: int) -> ExperimentConfig:
+    """reference models/experiments/phiseg_7_5_<bs>.py"""
+    return ExperimentConfig(
+        experiment_name=f"PHISeg_7_5_{batch_size}",
+        model="phiseg",
+        filter_channels=(32, 64, 128, 192, 192, 192, 192),
+        latent_levels=5,
+        n_classes=2,
+        batch_size=batch_size,
+        image_size=(128, 128),
+        augmentation_options=_LIDC_AUG,
+    )
+
+
+def _phiseg_big() -> ExperimentConfig:
+    """reference models/experiments/phiseg_big.py (256-wide, batch 32)"""
+    return ExperimentConfig(
+        experiment_name="PHISegBig",
+        model="phiseg",
+        filter_channels=(32, 64, 128, 192, 256, 256, 256),
+        latent_levels=5,
+        batch_size=32,
+        image_size=(128, 128),
+        augmentation_options=_LIDC_AUG,
+    )
+
+
+EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
+    "unet": _unet,
+    **{f"phiseg_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b))(bs) for bs in (12, 24, 36, 48, 56)},
+    "phiseg_big": _phiseg_big,
+}
 
 # in the JAX package's registry, not ported yet
 NOT_PORTED = (
-    *(f"phiseg_7_5_{bs}" for bs in (12, 24, 36, 48, 56)),
     *(f"phiseg_rev_7_5_{bs}" for bs in (12, 24, 36, 48, 56, 60, 64)),
-    "phiseg_big", "phiseg_big_reversible",
+    "phiseg_big_reversible",
     *(f"phiseg_uzh_7_5_{res}" for res in (192, 256, 384, 512)),
     *(f"phiseg_uzh_rev_7_5_{res}" for res in (192, 224, 256, 384, 512)),
     "prob_unet", "prob_unet_reversible", "reversible_unet", "phiseg_brats",

@@ -39,3 +39,22 @@ class DownBlock(nn.Module):
                 raise ValueError("a pooling block takes one tensor")
             x = ops.avg_pool_ceil(x)
         return self.convs(x)
+
+
+class PhiDownBlock(nn.Module):
+    """PHiSeg block: optional ceil-mode 2x2 avg-pool, then ``DEPTH``
+    torch_default conv + BatchNorm + ReLU (``ops.ConvSeq(norm=True)``, library
+    ops). Only ``reversible_mode="plain"`` is ported."""
+
+    def __init__(self, in_channels: int, features: int, pool: bool = True,
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.pool = pool
+        self.convs = ops.ConvSeq(in_channels, features, DEPTH, norm=True, init_scheme="torch_default",
+                                 dtype=dtype, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pool:
+            x = ops.avg_pool_ceil(x)
+        return self.convs(x)

@@ -1,4 +1,4 @@
-"""Op library of the PyTorch port: conv blocks, pooling, resizing,
+"""Op library of the PyTorch port: conv blocks, BatchNorm, pooling, resizing,
 initializers. NHWC at every public function, as in ``unet_zoo_tpu.ops``."""
 
 from unet_zoo_tpu_torch.ops.init import (
@@ -9,6 +9,7 @@ from unet_zoo_tpu_torch.ops.init import (
     orthogonal_kernel,
 )
 from unet_zoo_tpu_torch.ops.conv import Conv, ConvBNAct, ConvSeq
+from unet_zoo_tpu_torch.ops.norm import BatchNorm
 from unet_zoo_tpu_torch.ops.pool import avg_pool_ceil
 from unet_zoo_tpu_torch.ops.resize import resize_linear, upsample_nearest
 
@@ -21,6 +22,7 @@ __all__ = [
     "Conv",
     "ConvBNAct",
     "ConvSeq",
+    "BatchNorm",
     "avg_pool_ceil",
     "resize_linear",
     "upsample_nearest",

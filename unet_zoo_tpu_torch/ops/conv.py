@@ -3,10 +3,13 @@
 * ``Conv``      — bare conv with bias, the torch padding rule (k=3 -> 1,
                   else 0) and a selectable init scheme; a tuple input is an
                   implicit channel concat.
-* ``ConvBNAct`` — the parameter container of one conv + ReLU (the JAX
-                  module's ``conv`` scope); BatchNorm is not ported yet.
-* ``ConvSeq``   — ``depth`` stacked ``ConvBNAct`` without norm, run as the
-                  fused conv-chain kernel.
+* ``ConvBNAct`` — conv, then BatchNorm (eps 1e-3, momentum 0.01) if
+                  ``norm``, then ReLU if ``act``: the reference's ``Conv2D``
+                  unit. ``norm=False, act=False`` is the bare 1x1 head.
+* ``ConvSeq``   — ``depth`` stacked 3x3 ``ConvBNAct``. Without norm (the
+                  U-Net block) it runs as the fused conv-chain kernel; with
+                  norm (every PHiSeg sequence) as library ops, as in the JAX
+                  package, whose BN sequences never reach its Pallas kernel.
 
 Parameters are float32 and OIHW (``nn.Conv2d`` layout) and are drawn on the
 CPU from an explicit ``torch.Generator`` (so a seed gives the same weights
@@ -24,6 +27,7 @@ import torch
 import torch.nn as nn
 
 from unet_zoo_tpu_torch.ops import init as init_lib
+from unet_zoo_tpu_torch.ops.norm import BatchNorm
 from unet_zoo_tpu_torch.ops.pallas.conv_chain import conv2d_nhwc, fused_conv_chain, pack_kernel
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -33,20 +37,40 @@ def _concat(x: Tensors) -> torch.Tensor:
     return torch.cat(list(x), dim=-1) if isinstance(x, (tuple, list)) else x
 
 
+class _ZeroGrad(torch.autograd.Function):
+    """Identity whose gradient is an exact zero. The JAX package stops the
+    gradient of a bias that a train-mode BatchNorm follows (it is ~0 through
+    BN anyway) and its optimizer then adds the coupled weight decay to that
+    zero. A ``.detach()`` here would leave ``.grad`` as None, and
+    ``torch.optim.Adam`` skips such a parameter: the decay-only update would
+    be lost, about lr a step for every such bias."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(grad)
+
+
 class Conv(nn.Module):
     """Bare 2D convolution with bias over NHWC input, torch padding rule and init.
 
     ``init_scheme`` is 'he_normal', 'orthogonal' or 'torch_default'. ``x``
     may be a tuple of tensors, concatenated along channels in order (the
     JAX package splits the kernel instead; the result is the same).
+    ``grad_free_bias`` gives the bias an exact zero gradient (``_ZeroGrad``),
+    for a conv that BatchNorm follows.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
-                 init_scheme: str = "torch_default",
+                 init_scheme: str = "torch_default", grad_free_bias: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.padding = kernel_size // 2 if kernel_size == 3 else 0
+        self.grad_free_bias = grad_free_bias
         self.dtype = dtype
         shape = (features, in_channels, kernel_size, kernel_size)
         kernel_init, bias_init = init_lib.SCHEMES[init_scheme]
@@ -57,43 +81,62 @@ class Conv(nn.Module):
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
-        return conv2d_nhwc(x.to(self.dtype or x.dtype), self.weight, self.bias, self.padding)
+        bias = _ZeroGrad.apply(self.bias) if self.grad_free_bias else self.bias
+        return conv2d_nhwc(x.to(self.dtype or x.dtype), self.weight, bias, self.padding)
 
 
 class ConvBNAct(nn.Module):
-    """Parameters of one 3x3 he_normal conv followed by ReLU, at the JAX
-    module's path (``conv``). ``ConvSeq`` runs the forward."""
+    """conv -> BatchNorm (if ``norm``) -> ReLU (if ``act``), parameters at
+    the JAX module's paths (``conv``, ``bn``). With ``norm`` the conv's bias
+    gets an exact zero gradient, as in the JAX package. BatchNorm follows
+    ``self.training``: batch statistics in train mode, the running ones in
+    eval mode."""
 
-    def __init__(self, in_channels: int, features: int, device=None,
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3, norm: bool = True,
+                 act: bool = True, init_scheme: str = "torch_default",
+                 dtype: Optional[torch.dtype] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.conv = Conv(in_channels, features, init_scheme="he_normal",
-                         device=device, generator=generator)
+        self.act = act
+        self.conv = Conv(in_channels, features, kernel_size, init_scheme=init_scheme,
+                         grad_free_bias=norm, dtype=dtype, device=device, generator=generator)
+        self.bn = BatchNorm(features, device=device) if norm else None
+
+    def forward(self, x: Tensors) -> torch.Tensor:
+        y = self.conv(x)
+        if self.bn is not None:
+            y = self.bn(y)
+        return torch.relu(y) if self.act else y
 
 
 class ConvSeq(nn.Module):
-    """``depth`` stacked 3x3 conv + ReLU without norm (``conv{i}.conv``
-    parameter paths, as in the JAX package), run as one fused conv chain:
-    the kernel of ``ops/pallas/conv_chain.py`` on CUDA, its plain version on
-    the CPU. Gradients reach the float32 ``weight``/``bias`` parameters on
-    both (``FusedConvChain`` on CUDA).
+    """``depth`` stacked 3x3 conv (+ BatchNorm if ``norm``) + ReLU, with
+    ``conv{i}`` parameter paths as in the JAX package.
 
-    The CUDA path packs the kernels into the kernel's weight layout in
+    With ``norm`` the layers run one by one as library ops. Without it the
+    sequence runs as one fused conv chain: the kernel of
+    ``ops/pallas/conv_chain.py`` on CUDA, its plain version on the CPU.
+    Gradients reach the float32 ``weight``/``bias`` parameters on both
+    (``FusedConvChain`` on CUDA).
+
+    The CUDA chain packs the kernels into the kernel's weight layout in
     buffers allocated once per (dtype, device) and refilled on every
     forward, one copy per stage. A cache keyed on the parameters' ``_version``
     would go stale: ``torch.optim.Adam(fused=True)`` updates them in place
     without bumping it."""
 
-    def __init__(self, in_channels: int, features: int, depth: int,
-                 dtype: Optional[torch.dtype] = None, device=None,
+    def __init__(self, in_channels: int, features: int, depth: int, norm: bool = False,
+                 init_scheme: str = "he_normal", dtype: Optional[torch.dtype] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
+        self.norm = norm
         self.dtype = dtype
         for i in range(depth):
             self.add_module(f"conv{i}", ConvBNAct(
-                in_channels if i == 0 else features, features, device=device, generator=generator,
+                in_channels if i == 0 else features, features, norm=norm, init_scheme=init_scheme,
+                dtype=dtype, device=device, generator=generator,
             ))
         self._packed: Dict[tuple, List[torch.Tensor]] = {}
 
@@ -105,6 +148,10 @@ class ConvSeq(nn.Module):
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
+        if self.norm:
+            for layer in self.children():
+                x = layer(x)
+            return x
         x = x.to(self.dtype or x.dtype).contiguous()
         convs = [m.conv for m in self.children()]
         weights = [c.weight for c in convs]

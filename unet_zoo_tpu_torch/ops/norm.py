@@ -1,0 +1,41 @@
+"""BatchNorm with torch semantics, the twin of ``unet_zoo_tpu.ops.norm.BatchNorm``.
+
+eps 1e-3 and momentum 0.01 (torch style: the weight of the new batch
+statistic), as the reference wraps every PHiSeg conv. Statistics are taken
+in float32 over every axis but the trailing channel axis (NHWC); the
+running variance takes the unbiased batch variance, ``n / (n - 1)``; eval
+mode normalises with the running statistics; the output has the input's
+dtype. ``weight``/``bias`` are float32 parameters, ``running_mean``/
+``running_var`` float32 buffers starting at 0 and 1.
+
+The math is ``F.batch_norm`` on the float32 input, one fused library op
+each way on the card. It takes the variance in one Welford pass where the
+JAX module takes ``max(E[x^2] - E[x]^2, 0)``; the two differ in float32
+rounding only (``tests/test_torch_ops.py`` holds them together). Sync-BN
+over several cards (the JAX module's ``axis_name``) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, features: int, momentum: float = 0.01, eps: float = 1e-3, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalise NHWC ``x`` over (N, H, W); in train mode the running
+        statistics update in place (no host sync)."""
+        # NHWC permuted to NCHW is a channels_last view, taken without a copy
+        y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean, self.running_var,
+                         self.weight, self.bias, self.training, self.momentum, self.eps)
+        return y.permute(0, 2, 3, 1).to(x.dtype)

@@ -1,9 +1,10 @@
 """Train state and checkpoint I/O, the twin of ``unet_zoo_tpu.training.state``.
 
 The checkpoint is the complete training state, as in the JAX package: the
-model's ``state_dict``, the optimizer's state (Adam moments, step counts and
-learning rate), the plateau scheduler's state, the step counter and the
-augmentation generator's state. Restoring it and stepping on gives the same
+model's ``state_dict`` (BatchNorm's running statistics included), the
+optimizer's state (Adam moments, step counts and learning rate), the
+plateau scheduler's state, the step counter and the state of the generator
+of the step's draws (augmentation, then PHiSeg's z noise). Restoring it and stepping on gives the same
 result as never having stopped.
 """
 
@@ -22,7 +23,7 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     sched: PlateauState
-    generator: torch.Generator  # the augmentation draws
+    generator: torch.Generator  # the step's draws: augmentation, then z noise
     step: int = 0
 
     def state_dict(self) -> dict:

@@ -1,17 +1,20 @@
-"""The U-Net train step, the twin of ``unet_zoo_tpu.training.trainer.Trainer``'s
-construction and ``_step_fn`` (U-Net family, 2D device augmentation).
+"""The train step, the twin of ``unet_zoo_tpu.training.trainer.Trainer``'s
+construction and ``_step_fn`` (the U-Net and PHiSeg 2D families, 2D device
+augmentation).
 
 One step, all on the device and with no host sync: augmentation (draws from
-the state's generator) -> forward through the conv-chain kernel -> softmax
-CE -> backward -> the plateau scheduler on this step's loss -> coupled-L2
-Adam at the scheduler's learning rate, in the JAX step's order. The
-validate/test/export loop and the CLI are not ported yet (ROADMAP, queue A
-items 5-6).
+the state's generator) -> the model in train mode (the U-Net's blocks through
+the conv-chain kernel; PHiSeg with the mask, its z noise drawn from the same
+generator after the augmentation's, its BatchNorm running statistics updated
+in the forward) -> the family's loss -> backward -> the plateau scheduler on
+this step's loss -> coupled-L2 Adam at the scheduler's learning rate, in the
+JAX step's order. The validate/test/export loop and the CLI are not ported
+yet (ROADMAP, queue A items 5-6).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,7 +44,8 @@ class Trainer:
         """Builds the model (weights drawn on the CPU from a generator
         seeded from ``seed``, default ``cfg.seed``, then moved to
         ``device``, by default the CUDA card), the optimizer and the train
-        state. Raises where no card is present and ``device`` is not given."""
+        state, whose device generator makes every draw of a step.
+        Raises where no card is present and ``device`` is not given."""
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -72,8 +76,15 @@ class Trainer:
                                                opts, self.device)
         return warp_batch_2d(x, y, aug_params, opts)
 
-    def forward_loss(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward_loss(self, x: torch.Tensor, y: torch.Tensor, z_eps: Optional[List[torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The model in train mode (an evaluation may have left it in eval
+        mode) and its loss. For PHiSeg ``z_eps`` replaces the posterior's z
+        noise, one tensor a latent level."""
         model = self.state.model
+        model.train()
+        if self.cfg.model == "phiseg":
+            return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
         return model.loss(model(x), y)
 
     def backward(self, loss: torch.Tensor) -> None:
@@ -90,13 +101,14 @@ class Trainer:
         state.optimizer.step()
         state.step += 1
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor,
-                   aug_params: Optional[AugmentParams] = None) -> Dict[str, torch.Tensor]:
+    def train_step(self, x: torch.Tensor, y: torch.Tensor, aug_params: Optional[AugmentParams] = None,
+                   z_eps: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """One step on images x (B, H, W, C) float and labels y (B, H, W)
-        int. ``aug_params`` replaces the step's own draws (tests inject the
-        JAX package's). Returns the loss's aux dict as device tensors."""
+        int. ``aug_params`` and ``z_eps`` (PHiSeg) replace the step's own
+        draws (tests inject the JAX package's). Returns the loss's aux dict
+        as device tensors."""
         x, y = self.augment(x, y, aug_params)
-        loss, aux = self.forward_loss(x, y)
+        loss, aux = self.forward_loss(x, y, z_eps)
         self.backward(loss)
         self.update(loss)
         return {k: v.detach() for k, v in aux.items()}
