@@ -57,7 +57,31 @@ Phases, each printing its own lines:
    BatchNorm follows, which Adam's weight decay still moves), running
    statistics that change, a falling loss and no conv-chain launch; (c) the
    step's images/s (CUDA events), the host's time to issue one step, the ms
-   of each phase, and ``sample(x, 100)`` at batch 1 in ms an image.
+   of each phase, and ``sample(x, 100)`` at batch 1 in ms an image;
+7. evaluation and the harness: (a) GED, variance-NCC and Dice on the card
+   against the CPU on the same inputs at the evaluation's shape (100
+   samples, 4 annotators, 128x128; 2 classes and 3, empty masks among
+   them): intersections exact, Dice equal, GED within GED_RTOL of
+   max(1, |ref|), NCC within NCC_ATOL; (b) the 100-sample evaluation of one
+   image by the bf16 ``phiseg_7_5_12`` (``Trainer.eval_image``, the twin of
+   the JAX ``bench.py`` eval row): ms an image (the min of fenced calls)
+   and the host's time to issue one, finite GED, NCC in [-1, 1] and Dice in
+   [0, 1]; (c) the float32 ``phiseg_7_5_12`` evaluation of one image with 16
+   samples on the card against the CPU on the same weights and noise: the
+   logits, the metrics of the CPU's logits on both sides, and the eval-mode
+   loss; (d) the harness on in-memory synthetic LIDC (128x128, 4 graders)
+   for the bf16 ``unet`` and ``phiseg_7_5_12``: ``train`` for 20 iterations
+   with a validation every 10 (the U-Net's conv-chain launches counted),
+   the checkpoint and metrics files, a validation that leaves the train
+   state bit-identical and issues no host sync while it enqueues the
+   images, validation seconds an image (the evaluation alone, and the
+   whole ``validate`` with its checkpoint writes), for the U-Net the
+   validation path's batch-1 forwards and ``evaluate_images`` rows with
+   the kernel against the chain's plain version on the same trained
+   weights, images and picks (logits within BF16_FORWARD_ULPS, no argmax
+   flip, GED and Dice equal, NCC within what the logits' difference can
+   move it plus NCC_ATOL, loss terms within twice the logits' max|diff|),
+   and two test sweeps that write the same ``test_results.npz``.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -67,6 +91,7 @@ exit code is non-zero; without a GPU the script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -76,9 +101,11 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -176,6 +203,25 @@ PHISEG_TRAIN_OF_MAX = 1e-3
 PHISEG_TRAIN_GRAD_L2 = 2e-2
 PHISEG_STATS_RTOL = 1e-3
 PHISEG_LOSS_RTOL = 1e-5
+
+# phase 7: evaluation and the harness
+EVAL_SAMPLES = 100  # the reference's quantitative protocol
+EVAL_ANNOTATORS = 4
+EVAL_TIMED_CALLS = 5  # fenced calls after a warm-up; the min is reported
+EVAL_PARITY_SAMPLES = 16
+# the metrics on the card against the CPU on the same inputs: intersections
+# are exact counts in float32 and Dice a ratio of them (equal); GED sums
+# the same distances in another order (GED_RTOL of max(1, |ref|)); NCC's
+# means and standard deviations round differently (NCC_ATOL)
+GED_RTOL = 1e-5
+NCC_ATOL = 1e-4
+# the harness on synthetic LIDC: (train, val, test) images, iterations,
+# validation cadence and samples, and the test sweep's repeats and samples
+HARNESS_SPLITS = (64, 8, 8)
+HARNESS_ITERATIONS = 20
+HARNESS_VALIDATION_FREQUENCY = 10
+HARNESS_VALIDATION_SAMPLES = 16
+HARNESS_TEST_REPEATS, HARNESS_TEST_SAMPLES = 2, 10
 
 
 def log(msg: str) -> None:
@@ -476,7 +522,7 @@ def train_batches(n: int, dev, batch: int = TRAIN_BATCH):
     return (x.view(n, batch, IMAGE, IMAGE, 1), y.view(n, batch, IMAGE, IMAGE).long())
 
 
-def train_slice(conv_chain, dev, card: str) -> dict:
+def train_slice(conv_chain, dev, card: str, log_dir: str) -> dict:
     from unet_zoo_tpu_torch.data.augment import sample_augment_params
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
@@ -484,7 +530,7 @@ def train_slice(conv_chain, dev, card: str) -> dict:
     cfg = dataclasses.replace(get_experiment("unet"), dtype="bfloat16")
     opts = cfg.augmentation_options
     xs, ys = train_batches(TRAIN_STEPS, dev)
-    trainer = Trainer(cfg, dev, seed=0)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
     params = dict(trainer.state.model.named_parameters())
     per_step = len(BLOCKS) * STAGES_PER_BLOCK
 
@@ -527,7 +573,7 @@ def train_slice(conv_chain, dev, card: str) -> dict:
     # other signs wherever a gradient is near 0 (PERF.md). The plain side
     # reads the f32 parameters, never the kernel's packed copies, so packed
     # weights left one step stale would move the kernel's loss alone.
-    kern, plain = Trainer(cfg, dev, seed=1), Trainer(cfg, dev, seed=1)
+    kern, plain = Trainer(cfg, dev, seed=1, log_dir=log_dir), Trainer(cfg, dev, seed=1, log_dir=log_dir)
     aug_gen = torch.Generator(device=dev).manual_seed(4)
     for i in range(PARITY_STEPS):
         if i:  # a copy: the optimizer would keep the live moment tensors
@@ -578,7 +624,7 @@ def train_slice(conv_chain, dev, card: str) -> dict:
 
     kernel_ms = step_ms(trainer)
     with plain_chain():
-        plain_trainer = Trainer(cfg, dev, seed=0)
+        plain_trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
         plain_ms = step_ms(plain_trainer)
     # alternating the paths, so that both meet the same host
     kernel_hosts, plain_hosts = [], []
@@ -680,14 +726,14 @@ def phiseg_parity(dev) -> None:
     del models
 
 
-def phiseg_slice(conv_chain, dev, card: str) -> None:
+def phiseg_slice(conv_chain, dev, card: str, log_dir: str) -> None:
     """(b) and (c): the bf16 phiseg_7_5_12 train step, its times, and sample()."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
 
     cfg = dataclasses.replace(get_experiment(PHISEG_EXPERIMENT), dtype="bfloat16")
     xs, ys = train_batches(PHISEG_STEPS, dev, cfg.batch_size)
-    trainer = Trainer(cfg, dev, seed=0)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
     model = trainer.state.model
     params = dict(model.named_parameters())
     heads = {f"likelihood.head{j}.conv.bias" for j in range(cfg.latent_levels)}
@@ -768,7 +814,393 @@ def phiseg_slice(conv_chain, dev, card: str) -> None:
     spread = samples.float().std(dim=1).mean().item()
     check(spread > 0, "the samples are all the same")
     log(f"[time] PHiSeg sample(x, {PHISEG_SAMPLES}) at batch 1 bf16: {sample_ms:.3f} ms an image (logits "
-        f"{tuple(samples.shape)}, mean std over the samples {spread:.3e}; metrics not computed yet) | card: {card}")
+        f"{tuple(samples.shape)}, mean std over the samples {spread:.3e}) | card: {card}")
+
+
+def metric_inputs(n_classes: int, n: int, seed: int):
+    """Fixed inputs at the evaluation's shape: logits (n, IMAGE, IMAGE, C)
+    whose argmax is each sample's labels, with two samples all background,
+    and EVAL_ANNOTATORS annotators' blobs, the last one empty."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:IMAGE, 0:IMAGE]
+    logits = rng.standard_normal((n, IMAGE, IMAGE, n_classes)).astype(np.float32)
+    for c in range(1, n_classes):
+        cy, cx = rng.uniform(0.3, 0.7, 2) * IMAGE
+        blob = ((yy - cy) ** 2 + (xx - cx) ** 2 < (0.15 * IMAGE) ** 2).astype(np.float32)
+        logits[..., c] += 3.0 * blob
+    logits[:2, ..., 0] += 10.0
+    y_all = np.zeros((EVAL_ANNOTATORS, IMAGE, IMAGE), np.int64)
+    for a in range(EVAL_ANNOTATORS - 1):
+        for c in range(1, n_classes):
+            cy, cx = rng.uniform(0.3, 0.7, 2) * IMAGE
+            y_all[a][(yy - cy) ** 2 + (xx - cx) ** 2 < (rng.uniform(0.08, 0.2) * IMAGE) ** 2] = c
+    return torch.from_numpy(logits), torch.from_numpy(y_all)
+
+
+def metrics_agree(got: dict, want: dict, label: str) -> None:
+    """GED, NCC and Dice of one evaluation against a reference's, at (a)'s tolerances."""
+    ged_tol = GED_RTOL * max(1.0, abs(want["ged"].item()))
+    ged_err = abs(got["ged"].item() - want["ged"].item())
+    ncc_err = abs(got["ncc"].item() - want["ncc"].item())
+    check(ged_err <= ged_tol, f"{label}: GED {got['ged'].item()} vs {want['ged'].item()}")
+    check(ncc_err <= NCC_ATOL, f"{label}: NCC {got['ncc'].item()} vs {want['ncc'].item()}")
+    check(torch.equal(got["dice"].cpu(), want["dice"].cpu()), f"{label}: Dice {got['dice']} vs {want['dice']}")
+    log(f"[eval] {label}: GED {want['ged'].item():.6f} |diff| {ged_err:.2e} (tol {ged_tol:.1e}), NCC "
+        f"{want['ncc'].item():.6f} |diff| {ncc_err:.2e} (tol {NCC_ATOL}), Dice equal")
+
+
+def metrics_parity(dev) -> None:
+    """(a): each metric on the card against the CPU on the same inputs."""
+    from unet_zoo_tpu_torch import metrics as M
+
+    for n_classes in (2, 3):
+        logits, y_all = metric_inputs(n_classes, EVAL_SAMPLES, seed=n_classes)
+        probs = torch.softmax(logits, dim=-1)
+        labels = logits.argmax(-1)
+        gt = torch.nn.functional.one_hot(y_all, n_classes).float()
+        stacked = torch.cat([labels, y_all])
+        label_range = range(1, n_classes)
+        empty = 0
+        for lbl in label_range:
+            (ic, sc), (ig, sg) = (M.pairwise_intersections(t, lbl) for t in (stacked, stacked.to(dev)))
+            check(torch.equal(ig.cpu(), ic) and torch.equal(sg.cpu(), sc), f"{n_classes} classes, label {lbl}: "
+                  f"intersections differ by up to {(ig.cpu() - ic).abs().max().item()}")
+            empty += int((sc == 0).sum().item())
+        runs = {}
+        for d in ("cpu", dev):
+            to = (lambda t: t.to(d))  # noqa: E731
+            runs[d] = {
+                "ged": M.generalised_energy_distance(to(labels), to(y_all), n_classes - 1, label_range),
+                "ncc": M.variance_ncc_dist_class_first(to(probs.movedim(-1, 0)), to(gt.movedim(-1, 0))),
+                "ncc_last": M.variance_ncc_dist(to(probs), to(gt)),
+                "dice": torch.stack([M.dice_per_label(to(labels[i]), to(y_all[a]), n_classes)
+                                     for i in (0, 2, 3) for a in range(EVAL_ANNOTATORS)]),
+            }
+        metrics_agree(runs[dev], runs["cpu"], f"metrics card vs CPU, {EVAL_SAMPLES} samples x {EVAL_ANNOTATORS} "
+                                              f"annotators {IMAGE}x{IMAGE}, {n_classes} classes, {empty} empty masks; "
+                                              f"intersections exact")
+        err = abs(runs[dev]["ncc_last"].item() - runs["cpu"]["ncc_last"].item())
+        check(err <= NCC_ATOL, f"{n_classes} classes: channels-last NCC |diff| {err}")
+
+
+def eval_timing(conv_chain, dev, card: str, log_dir: str) -> dict:
+    """(b): the 100-sample evaluation of one image by bf16 phiseg_7_5_12."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer, image_metrics
+
+    cfg = dataclasses.replace(get_experiment(PHISEG_EXPERIMENT), dtype="bfloat16")
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((1, IMAGE, IMAGE, 1), generator=gen, device=dev)
+    y_all = torch.randint(0, cfg.n_classes, (EVAL_ANNOTATORS, IMAGE, IMAGE), generator=gen, device=dev)
+    conv_chain.launches = 0
+    out = trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES)  # warm-up
+    torch.cuda.synchronize()
+    check(conv_chain.launches == 0, f"the PHiSeg evaluation launched the conv-chain kernel {conv_chain.launches} times")
+    walls, hosts = [], []
+    for i in range(EVAL_TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES, index=i + 1)
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ged, ncc, dice = out["ged"].item(), out["ncc"].item(), out["dice"].cpu()
+    check(math.isfinite(ged) and math.isfinite(out["loss"].item()), f"GED {ged}, loss {out['loss'].item()}")
+    check(-1.0 <= ncc <= 1.0, f"NCC {ncc} outside [-1, 1]")
+    check(bool(((dice >= 0) & (dice <= 1)).all()), f"Dice {dice.tolist()} outside [0, 1]")
+    ms, host = min(walls), min(hosts)
+
+    # where the time goes: each part alone, fenced, the min of 3
+    def fenced_ms(fn) -> float:
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    model, generator = trainer.state.model, trainer.eval_generator(0, 0)
+    model.eval()
+    with torch.inference_mode():
+        logits = model.sample(x, EVAL_SAMPLES, generator=generator)
+        parts = {
+            f"sample(x, {EVAL_SAMPLES})": fenced_ms(lambda: model.sample(x, EVAL_SAMPLES, generator=generator)),
+            "GED/NCC/Dice": fenced_ms(lambda: image_metrics(logits[0], y_all, y_all[0])),
+            "eval-mode loss forward": fenced_ms(lambda: model.loss(model(x, y_all[:1], generator=generator),
+                                                                   y_all[:1])),
+        }
+    model.train()
+    log(f"[time] PHiSeg {EVAL_SAMPLES}-sample evaluation, each part alone (fenced, min of 3): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f" | card: {card}")
+    log(f"[eval] PHiSeg {PHISEG_EXPERIMENT} bf16, {EVAL_SAMPLES} samples + GED/NCC/Dice + loss of one image: "
+        f"GED {ged:.4f} NCC {ncc:.4f} Dice {[round(v, 4) for v in dice.tolist()]} loss {out['loss'].item():.1f}")
+    log(f"[time] PHiSeg {EVAL_SAMPLES}-sample evaluation bf16, one {IMAGE}x{IMAGE} image: {ms:.3f} ms an image "
+        f"(min of {EVAL_TIMED_CALLS} fenced calls, median {sorted(walls)[EVAL_TIMED_CALLS // 2]:.3f}); the host "
+        f"issues it in {host:.3f} ms (median {sorted(hosts)[EVAL_TIMED_CALLS // 2]:.3f}) | card: {card}")
+    return {"ms": ms, "host_ms": host, "parts_ms": parts}
+
+
+def eval_parity(dev, log_dir: str) -> None:
+    """(c): float32 phiseg_7_5_12 evaluation of one image, card vs CPU."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer, image_metrics
+
+    cfg = get_experiment(PHISEG_EXPERIMENT)
+    trainers = {d: Trainer(cfg, d, seed=5, log_dir=log_dir) for d in ("cpu", dev)}
+    n = EVAL_PARITY_SAMPLES
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((1, IMAGE, IMAGE, 1), generator=gen)
+    _, y_all = metric_inputs(cfg.n_classes, 1, seed=9)
+    shapes = [(IMAGE >> (lvl + 2),) * 2 + (cfg.zdim,) for lvl in range(cfg.latent_levels)]
+    eps = [torch.randn((1, n, *s), generator=gen) for s in shapes]
+    loss_eps = tuple([torch.randn((1, *s), generator=gen) for s in shapes] for _ in range(2))
+    logits, outs = {}, {}
+    for d, tr in trainers.items():
+        to = (lambda t: t.to(d))  # noqa: E731
+        with torch.inference_mode():
+            logits[d] = tr.state.model.sample(to(x), n, eps=[to(e) for e in eps])[0].cpu()
+        outs[d] = tr.eval_image(to(x), to(y_all), to(y_all[:1]), n, eps=[to(e) for e in eps],
+                                loss_eps=tuple([to(e) for e in le] for le in loss_eps))
+    err = (logits[dev] - logits["cpu"]).abs().max().item() / logits["cpu"].abs().max().item()
+    flips = int((logits[dev].argmax(-1) != logits["cpu"].argmax(-1)).sum().item())
+    log(f"[eval] f32 {PHISEG_EXPERIMENT} sample(x, {n}) card vs CPU, same weights and eps: logits {err:.3e} of "
+        f"max|ref| (tol {PHISEG_EVAL_OF_MAX}), {flips} argmax flips of {logits['cpu'][..., 0].numel()} pixels")
+    check(err <= PHISEG_EVAL_OF_MAX, f"f32 eval logits: {err:.3e} of max|ref|")
+    ref = image_metrics(logits["cpu"], y_all, y_all[0])
+    metrics_agree(image_metrics(logits["cpu"].to(dev), y_all.to(dev), y_all[0].to(dev)), ref,
+                  f"f32 {PHISEG_EXPERIMENT} metrics of the CPU's logits, card vs CPU")
+    loss_err = max(abs(outs[dev][k].item() - outs["cpu"][k].item()) / abs(outs["cpu"][k].item())
+                   for k in ("loss", "kl", "recon"))
+    log(f"[eval] f32 eval_image card vs CPU: eval-mode loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}); "
+        f"GED {outs[dev]['ged'].item():.6f} vs {outs['cpu']['ged'].item():.6f}, NCC {outs[dev]['ncc'].item():.6f} "
+        f"vs {outs['cpu']['ncc'].item():.6f} on each side's own logits")
+    check(loss_err <= PHISEG_LOSS_RTOL, f"f32 eval-mode loss terms: rel diff {loss_err:.3e}")
+
+
+def same_state(a, b, path: str = "state") -> None:
+    """Two train states (``state_dict``s) are equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        check(a.dtype == b.dtype and torch.equal(a, b), f"{path} changed")
+    elif isinstance(a, dict):
+        check(a.keys() == b.keys(), f"{path}: keys changed")
+        for k in a:
+            same_state(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (u, v) in enumerate(zip(a, b)):
+            same_state(u, v, f"{path}[{i}]")
+    else:
+        check(a == b, f"{path}: {a} -> {b}")
+
+
+def no_sync_enqueue(trainer, seconds=None):
+    """Patches ``trainer.evaluate_images``, the per-image enqueue loop of
+    ``validate`` and ``test``, so that a host sync inside it raises. With a
+    list ``seconds``, appends each call's time from a fenced start to the
+    end of its device work (the enqueue and what the fetch waits for)."""
+    enqueue = trainer.evaluate_images
+
+    def guarded(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = enqueue(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if seconds is not None:
+            seconds.append(time.perf_counter() - t0)
+        return out
+
+    return mock.patch.object(trainer, "evaluate_images", guarded)
+
+
+def ncc_moves(got, want, y_all) -> torch.Tensor:
+    """How far each image's variance-NCC may move when its U-Net logits
+    (B, H, W, C) move from ``want`` to ``got`` (the samples all agree, so
+    one sample gives the maps): NCC is the mean over the annotators of the
+    correlation of the E_ss and E_sy maps, and by Cauchy-Schwarz a
+    correlation moves by at most 2|da|/|a - mean a| for each map ``a`` that
+    moves by ``da``."""
+    def maps(logits):
+        p = torch.softmax(logits.float(), -1)
+        log_p = torch.log(p + 1e-8)
+        e_ss = -(p * log_p).sum(-1)
+        e_sy = -torch.gather(log_p[:, None].expand(-1, y_all.shape[1], -1, -1, -1), -1, y_all[..., None])[..., 0]
+        return e_ss, e_sy  # (B, H, W), (B, A, H, W)
+
+    def moves(a, b):
+        return 2 * (a - b).flatten(-2).norm(dim=-1) / (b - b.mean((-2, -1), keepdim=True)).flatten(-2).norm(dim=-1)
+
+    (g_ss, g_sy), (w_ss, w_sy) = maps(got), maps(want)
+    return (moves(g_ss, w_ss)[:, None] + moves(g_sy, w_sy)).mean(1)
+
+
+def unet_eval_agrees(conv_chain, trainer, data, n_val: int) -> int:
+    """(d), the U-Net: the validation path's forwards (batch 1, full width,
+    21 launches an image) with the kernel against the chain's plain version
+    on the same trained weights, images and annotator picks. The logits by
+    ``logits_agree``, with no argmax flip; then ``evaluate_images``' rows:
+    Dice and GED of the same labels equal, NCC within what the logits'
+    difference can move it (``ncc_moves``) plus NCC_ATOL (NaN where the
+    plain path's is NaN), the loss terms within twice the logits' max|diff|
+    (softmax CE moves by at most that) plus f32 rounding. Returns the
+    kernel path's launches."""
+    from unet_zoo_tpu_torch.training.trainer import EVAL_SCALARS
+
+    _, images, labels = trainer._upload(data.validation, n_val)
+    val_rng, annotators = trainer._eval_rng(), trainer._annotators()
+    chosen = [int(val_rng.choice(annotators)) for _ in range(n_val)]
+    model, n = trainer.state.model, HARNESS_VALIDATION_SAMPLES
+    runs = {}
+    for path in ("kernel", "plain"):
+        torch.cuda.synchronize()
+        before = conv_chain.launches
+        with plain_chain() if path == "plain" else contextlib.nullcontext():
+            was_training = model.training
+            model.eval()
+            with torch.inference_mode():
+                logits = torch.cat([model.sample(images[i:i + 1], 1)[:, 0] for i in range(n_val)])
+            model.train(was_training)
+            rows, _ = trainer.evaluate_images(images, labels, chosen, n, n, salt=0)
+        torch.cuda.synchronize()
+        runs[path] = (logits.float().cpu(), rows.cpu(), conv_chain.launches - before)
+    (got, got_rows, launched), (want, want_rows, plain_launched) = runs["kernel"], runs["plain"]
+    expected = 2 * n_val * len(BLOCKS) * STAGES_PER_BLOCK
+    check(launched == expected and plain_launched == 0,
+          f"unet validation path: {launched} launches with the kernel (expected {expected}), {plain_launched} plain")
+    logits_agree(got, want, f"unet validation path, {n_val} trained-model forwards at batch 1, kernel vs plain")
+    err = (got - want).abs().max().item()
+    flips = int((got.argmax(-1) != want.argmax(-1)).sum().item())
+    check(flips == 0, f"unet validation path: {flips} argmax flips between the kernel and the plain chain")
+    k = len(EVAL_SCALARS)
+    col = {name: i for i, name in enumerate(EVAL_SCALARS)}
+    ged_err = (got_rows[:, col["ged"]] - want_rows[:, col["ged"]]).abs().max().item()
+    check(ged_err <= GED_RTOL * max(1.0, want_rows[:, col["ged"]].abs().max().item()), f"GED |diff| {ged_err}")
+    g_ncc, w_ncc = got_rows[:, col["ncc"]], want_rows[:, col["ncc"]]
+    check(torch.equal(g_ncc.isnan(), w_ncc.isnan()), f"NCC NaN pattern {g_ncc.tolist()} vs {w_ncc.tolist()}")
+    finite = ~w_ncc.isnan()
+    ncc_diff, ncc_tol = (g_ncc - w_ncc).abs()[finite], (ncc_moves(got, want, labels.cpu()) + NCC_ATOL)[finite]
+    check(bool((ncc_diff <= ncc_tol).all()), f"NCC |diff| {ncc_diff.tolist()} > tol {ncc_tol.tolist()}")
+    ncc_err = ncc_diff.max().item() if bool(finite.any()) else 0.0
+    check(torch.equal(got_rows[:, k:], want_rows[:, k:]), f"Dice {got_rows[:, k:]} vs {want_rows[:, k:]}")
+    terms = [col[t] for t in ("loss", "kl", "recon")]
+    loss_err = (got_rows[:, terms] - want_rows[:, terms]).abs().max().item()
+    loss_tol = 2 * err + 1e-6 * max(1.0, want_rows[:, terms].abs().max().item())
+    check(loss_err <= loss_tol, f"loss terms |diff| {loss_err} > {loss_tol}")
+    log(f"[harness] unet validation path, kernel vs plain chain on the same {n_val} images and picks: "
+        f"{launched} launches (expected {expected}), 0 argmax flips, GED |diff| {ged_err:.3e}, NCC |diff| "
+        f"{ncc_err:.3e} (each image's tol {', '.join(f'{t:.3e}' for t in ncc_tol.tolist())}; NaN in "
+        f"{int(w_ncc.isnan().sum())} images on both), Dice equal, loss terms |diff| "
+        f"{loss_err:.3e} (tol {loss_tol:.3e})")
+    return launched
+
+
+def harness(conv_chain, dev, card: str, log_root: str) -> dict:
+    """(d): train, validate and test on in-memory synthetic LIDC."""
+    from unet_zoo_tpu_torch.data import LIDCData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    data = LIDCData(synthetic.lidc_splits(HARNESS_SPLITS, IMAGE, seed=0), seed=0)
+    n_val, n_test = HARNESS_SPLITS[1], HARNESS_SPLITS[2]
+    per_forward = len(BLOCKS) * STAGES_PER_BLOCK
+    validations = HARNESS_ITERATIONS // HARNESS_VALIDATION_FREQUENCY
+    result = {}
+    for name in ("unet", PHISEG_EXPERIMENT):
+        cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16",
+                                  validation_frequency=HARNESS_VALIDATION_FREQUENCY,
+                                  logging_frequency=HARNESS_VALIDATION_FREQUENCY, num_validation_images=n_val,
+                                  validation_samples=HARNESS_VALIDATION_SAMPLES)
+        log_dir = os.path.join(log_root, name)
+        trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+        unet = cfg.model == "unet"
+        torch.cuda.synchronize()
+        conv_chain.launches = 0
+        t0 = time.perf_counter()
+        aux = trainer.train(data, iterations=HARNESS_ITERATIONS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        expected = (HARNESS_ITERATIONS + validations * n_val) * per_forward if unet else 0
+        check(conv_chain.launches == expected, f"{name}: train() launched {conv_chain.launches}, expected {expected}")
+        check(trainer.state.step == HARNESS_ITERATIONS and math.isfinite(aux["loss"].item()),
+              f"{name}: step {trainer.state.step}, loss {aux['loss'].item()}")
+        with open(os.path.join(log_dir, "metrics_validation.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        check([r["step"] for r in records] == [HARNESS_VALIDATION_FREQUENCY * (i + 1) for i in range(validations)],
+              f"{name}: validation records {records}")
+        # NCC is NaN where an image's E_ss is constant (the U-Net's samples
+        # all agree, and a saturated output has a constant entropy); NaN is
+        # never a best, as in the JAX package, so best_ncc needs a finite one
+        files = ["validation_ckpt", "best_dice", "best_loss", "best_ged", "best_metrics.json",
+                 "metrics_validation.jsonl", "metrics_train.jsonl"]
+        files += ["best_ncc"] if any(math.isfinite(r["ncc"]) for r in records) else []
+        missing = [f for f in files if not os.path.exists(os.path.join(log_dir, f))]
+        check(not missing, f"{name}: missing {missing}")
+        log(f"[harness] {name} bf16: train({HARNESS_ITERATIONS}) with a validation every "
+            f"{HARNESS_VALIDATION_FREQUENCY} ({n_val} images x {HARNESS_VALIDATION_SAMPLES} samples) in "
+            f"{train_s:.2f} s, {conv_chain.launches} conv-chain launches (expected {expected}); all of {files} "
+            f"written; last validation {json.dumps(records[-1])}")
+
+        # one more validation: no host sync while it enqueues, the train state bit-identical after it
+        before = copy.deepcopy(trainer.state.state_dict())
+        torch.cuda.synchronize()
+        conv_chain.launches = 0
+        t0 = time.perf_counter()
+        saves, save, eval_s = [], trainer.save_model, []
+        with no_sync_enqueue(trainer, eval_s), \
+                mock.patch.object(trainer, "save_model", lambda n: (saves.append(n), save(n))):
+            agg = trainer.validate(data)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+        eval_launches = conv_chain.launches
+        expected = n_val * per_forward if unet else 0
+        check(eval_launches == expected, f"{name}: validate() launched {eval_launches}, expected {expected}")
+        same_state(before, trainer.state.state_dict())
+        del before
+        ncc_ok = -1 <= agg["ncc"] <= 1 or (unet and math.isnan(agg["ncc"]))
+        check(all(math.isfinite(agg[k]) for k in ("ged", "loss")) and ncc_ok and 0 <= agg["dice"] <= 1,
+              f"{name}: validation {agg}")
+        log(f"[harness] {name}: validate() issued its {n_val} images with no host sync and left the parameters, "
+            f"running statistics, optimizer state, generator and step bit-identical; {eval_launches} conv-chain "
+            f"launches (expected {expected}); dice {agg['dice']:.4f} ged {agg['ged']:.4f} ncc {agg['ncc']:.4f}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save_model("validation_ckpt")
+        ckpt_s = time.perf_counter() - t0
+        ckpt_mb = os.path.getsize(os.path.join(log_dir, "validation_ckpt")) / 2 ** 20
+        log(f"[time] {name} bf16 validation, {n_val} images x {HARNESS_VALIDATION_SAMPLES} samples (and as many "
+            f"loss repeats): the evaluation (evaluate_images, enqueue and device work) {eval_s[0]:.3f} s, "
+            f"{eval_s[0] / n_val:.4f} s an image; the whole validate() with its checkpoints {val_s:.3f} s, "
+            f"{val_s / n_val:.4f} s an image; one checkpoint ({ckpt_mb:.1f} MiB) takes {ckpt_s:.3f} s to write, "
+            f"and this validation wrote {len(saves)} ({', '.join(saves)}) | card: {card}")
+        if unet:
+            unet_eval_agrees(conv_chain, trainer, data, n_val)
+
+        runs = []
+        for _ in range(2):
+            with no_sync_enqueue(trainer):
+                res = trainer.test(data, num_repeats=HARNESS_TEST_REPEATS, num_samples=HARNESS_TEST_SAMPLES,
+                                   checkpoint="best_loss")
+            with np.load(os.path.join(log_dir, "test_results.npz")) as f:
+                runs.append({k: f[k] for k in f.files})
+        shapes = {k: v.shape for k, v in runs[0].items()}
+        check(shapes == {"ged": (HARNESS_TEST_REPEATS, n_test), "ncc": (HARNESS_TEST_REPEATS, n_test),
+                         "dice": (HARNESS_TEST_REPEATS, n_test, cfg.n_classes)}, f"{name}: test_results {shapes}")
+        check(all(np.array_equal(runs[0][k], runs[1][k], equal_nan=True) for k in runs[0]),
+              f"{name}: two test sweeps differ")
+        log(f"[harness] {name}: test({HARNESS_TEST_REPEATS} repeats, {HARNESS_TEST_SAMPLES} samples, best_loss) "
+            f"twice, the same test_results.npz {shapes}: GED {res['ged'][0]:.4f}±{res['ged'][1]:.4f} NCC "
+            f"{res['ncc'][0]:.4f}±{res['ncc'][1]:.4f} Dice {res['dice'][0]:.4f}±{res['dice'][1]:.4f} "
+            f"({res['seconds']:.2f} s a sweep)")
+        result[name] = {"eval_launches": eval_launches, "validation_eval_s_per_image": eval_s[0] / n_val,
+                        "validation_with_checkpoints_s_per_image": val_s / n_val}
+        del trainer
+        torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -886,16 +1318,26 @@ def main() -> int:
     del model, xs
     torch.cuda.empty_cache()
 
-    # 5. the train slice
-    backward_err = function_grads_agree(conv_chain, dev, gen)
-    train = train_slice(conv_chain, dev, card)
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_logs_") as log_root:
+        # 5. the train slice
+        backward_err = function_grads_agree(conv_chain, dev, gen)
+        train = train_slice(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
-    # 6. PHiSeg: f32 parity with the CPU, the bf16 train step, times
-    t0 = time.perf_counter()
-    phiseg_parity(dev)
-    phiseg_slice(conv_chain, dev, card)
-    log(f"[phiseg] phase 6 took {time.perf_counter() - t0:.1f} s")
+        # 6. PHiSeg: f32 parity with the CPU, the bf16 train step, times
+        t0 = time.perf_counter()
+        phiseg_parity(dev)
+        phiseg_slice(conv_chain, dev, card, log_root)
+        log(f"[phiseg] phase 6 took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 7. evaluation and the harness
+        t0 = time.perf_counter()
+        metrics_parity(dev)
+        evaluation = eval_timing(conv_chain, dev, card, log_root)
+        eval_parity(dev, log_root)
+        harnessed = harness(conv_chain, dev, card, log_root)
+        log(f"[eval] phase 7 took {time.perf_counter() - t0:.1f} s")
 
     main = blocks[BATCH]
     log(json.dumps({"kernels": [{
@@ -919,6 +1361,12 @@ def main() -> int:
         "train_step_plain_ms": train["plain_ms"],
         "train_step_host_ms": train["host_ms"],
         "train_step_plain_host_ms": train["plain_host_ms"],
+        "eval_launches": harnessed["unet"]["eval_launches"],
+        "validation_eval_s_per_image": {k: v["validation_eval_s_per_image"] for k, v in harnessed.items()},
+        "validation_with_checkpoints_s_per_image": {
+            k: v["validation_with_checkpoints_s_per_image"] for k, v in harnessed.items()},
+        "phiseg_eval100_ms": evaluation["ms"],
+        "phiseg_eval100_host_ms": evaluation["host_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -69,6 +69,13 @@ BF16_LOSS_RTOL, BF16_GRAD_VS_JAX = 1e-3, 2.5
 BF16_PHISEG_LOSS_RTOL, BF16_PHISEG_STATS_ATOL, BF16_PHISEG_PARAM_LR = 1e-3, 1e-4, 2.01
 
 
+@pytest.fixture(autouse=True)
+def _log_root(tmp_path, monkeypatch):
+    """Each port ``Trainer`` here writes its log directory under the
+    default ``logs/`` of the working directory: a temporary one."""
+    monkeypatch.chdir(tmp_path)
+
+
 def _batches(n, seed=0):
     """Smooth noise, labelled where it is positive."""
     rng = np.random.default_rng(seed)
@@ -368,6 +375,9 @@ def test_registry_names_every_jax_experiment():
     ({"use_reversible": True}, NotImplementedError),
     ({"reversible_mode": "remat"}, NotImplementedError),
     ({"model": "phiseg", "latent_levels": 5}, ValueError),
+    ({"augment_on": "host"}, NotImplementedError),
+    ({"augment_on": "gpu"}, ValueError),
+    ({"loader": "mmap"}, ValueError),
 ])
 def test_config_validate_rejects(change, error):
     with pytest.raises(error):

@@ -155,16 +155,23 @@ def test_same_seed_same_weights():
 
 
 def test_port_never_imports_jax():
-    # a subprocess: this test process has jax imported by tests/conftest.py
+    # a subprocess: this test process has jax imported by tests/conftest.py.
+    # Nor h5py or scikit-learn at import: the card's machine has neither.
     code = ("import sys, unet_zoo_tpu_torch, unet_zoo_tpu_torch.models.registry, "
             "unet_zoo_tpu_torch.bridge, unet_zoo_tpu_torch.ops.pallas._build, "
             "unet_zoo_tpu_torch.data, unet_zoo_tpu_torch.data.augment, "
+            "unet_zoo_tpu_torch.data.batch_provider, unet_zoo_tpu_torch.data.lidc, "
+            "unet_zoo_tpu_torch.data.registry, unet_zoo_tpu_torch.data.synthetic, "
             "unet_zoo_tpu_torch.experiments, unet_zoo_tpu_torch.experiments.config, "
             "unet_zoo_tpu_torch.experiments.registry, unet_zoo_tpu_torch.training, "
             "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "
-            "unet_zoo_tpu_torch.training.trainer, unet_zoo_tpu_torch.models.phiseg, "
-            "unet_zoo_tpu_torch.models.prob_unet, unet_zoo_tpu_torch.ops.norm; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'triton', 'unet_zoo_tpu')]; "
+            "unet_zoo_tpu_torch.training.trainer, unet_zoo_tpu_torch.training.cli, "
+            "unet_zoo_tpu_torch.models.phiseg, unet_zoo_tpu_torch.models.prob_unet, unet_zoo_tpu_torch.ops.norm, "
+            "unet_zoo_tpu_torch.metrics, unet_zoo_tpu_torch.metrics.dice, unet_zoo_tpu_torch.metrics.ged, "
+            "unet_zoo_tpu_torch.metrics.ncc, unet_zoo_tpu_torch.utils, unet_zoo_tpu_torch.utils.summary, "
+            "unet_zoo_tpu_torch.train, unet_zoo_tpu_torch.eval; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'triton', 'unet_zoo_tpu', 'h5py', 'sklearn')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                           cwd=Path(__file__).resolve().parents[1])

@@ -19,6 +19,7 @@ import argparse
 import dataclasses
 import os
 import sys
+import tempfile
 import time
 
 import torch
@@ -45,7 +46,7 @@ def main() -> int:
     card = card_line()
     cfg = dataclasses.replace(get_experiment("phiseg_7_5_12"), dtype="bfloat16")
     xs, ys = train_batches(1, dev, cfg.batch_size)
-    trainer = Trainer(cfg, dev, seed=0)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=tempfile.mkdtemp(prefix="phiseg_profile_"), tensorboard=False)
     for _ in range(3):
         trainer.train_step(xs[0], ys[0])
 

@@ -1,0 +1,22 @@
+"""Dataset registry, the twin of ``unet_zoo_tpu.data.registry``: names ->
+data classes. LIDC is ported; the JAX package's other datasets raise
+``NotImplementedError``."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from unet_zoo_tpu_torch.data.lidc import LIDCData
+
+DATASETS: Dict[str, Any] = {"lidc": LIDCData}
+
+# in the JAX package's registry, not ported yet
+NOT_PORTED = ("uzh_prostate", "uzh_mat", "brats")
+
+
+def data_switch(name: str):
+    if name in DATASETS:
+        return DATASETS[name]
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"dataset '{name}' is not ported to PyTorch yet; ported: {sorted(DATASETS)}")
+    raise ValueError(f"unknown dataset '{name}'; available: {sorted(DATASETS)}")
