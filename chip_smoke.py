@@ -20,7 +20,8 @@ Phases, each printing its own lines:
    batch 512, 128x128x1, bf16) under inference mode, with the kernel launch
    count checked; those logits against the same model with every block on
    the chain's plain version, on the card; a batch-2 float32 forward on the
-   card against the same weights on the CPU (plain path); and the main
+   card (21 launches of the float32 kernel, ``conv3x3_f32_fma``) against the
+   same weights on the CPU (plain path); and the main
    path's bf16 logits of two images against that f32 CPU model;
 4. each block at batch 512 and at batch 64 on the model's weights: the
    kernel against its plain version, REPEATS more launches each bit for bit
@@ -81,7 +82,33 @@ Phases, each printing its own lines:
    weights, images and picks (logits within BF16_FORWARD_ULPS, no argmax
    flip, GED and Dice equal, NCC within what the logits' difference can
    move it plus NCC_ATOL, loss terms within twice the logits' max|diff|),
-   and two test sweeps that write the same ``test_results.npz``.
+   and two test sweeps that write the same ``test_results.npz``;
+8. the remat and reversible memory modes: (a) ``ReversibleChain`` against
+   autograd of the same coupling chain at the full-width block shapes
+   (REV_BLOCK_SHAPES), each gradient's distance from the float64 one
+   against autograd's, in float32 with TF32 off (REV_F32_VS_AUTOGRAD) and
+   bf16 (from the f32 one, REV_BF16_VS_AUTOGRAD); (b) a batch-2 float32
+   ``phiseg_rev_7_5_12`` forward, loss, gradients and running statistics in
+   train mode on the card against the CPU, at phase 6's train-mode gates;
+   (c) MODE_STEPS bf16 steps each of ``phiseg_rev_7_5_12`` at batch 12,
+   ``reversible_unet`` at batch 12 and the remat ``unet`` at batch 64 from a
+   fixed seed: no host sync inside a step, a gradient in every parameter (an
+   exact zero in each bias that BatchNorm follows), running statistics that
+   move once a step (against a no-grad forward from the state before it), a
+   finite and falling loss, 42 conv-chain launches a remat U-Net step (21 in
+   the backward's re-run) and none on the reversible paths, and the remat
+   U-Net step bit-identical to the plain one from the same state and draws
+   (cuDNN deterministic, resize as matrix products on both sides), and the
+   first bf16 RevPHiSeg step against its f32 twin from the same weights and
+   draws (loss and whole gradient, REV_STEP_GRAD_L2) with each side's
+   parameter change equal to coupled-L2 Adam's first update written out from
+   its own gradient (ADAM_OF_LR); (d) the
+   peak memory of a float32 step in each mode, with cuDNN's TF32 off and on
+   (``tools/torch_memory.py``: ``phiseg_7_5_12``'s shape at batch 12 and 24,
+   the U-Net at 64), with remat and reversible below plain for PHiSeg at
+   batch 12 in both; (e) each path's
+   images/s and host issue time, and the 100-sample evaluation of one image
+   by the bf16 ``phiseg_rev_7_5_12``.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -222,6 +249,42 @@ HARNESS_ITERATIONS = 20
 HARNESS_VALIDATION_FREQUENCY = 10
 HARNESS_VALIDATION_SAMPLES = 16
 HARNESS_TEST_REPEATS, HARNESS_TEST_SAMPLES = 2, 10
+
+# phase 8: the memory modes
+REV_EXPERIMENT = "phiseg_rev_7_5_12"
+# the reversible blocks at full width: 192 channels at 8x8 (PHiSeg's coarse
+# levels) and 64 at 128x128 (the widest tensor a coupling function sees),
+# batch 12, 3 coupling blocks (a PHiSeg down block)
+REV_BLOCK_SHAPES = [(12, 8, 8, 192), (12, 128, 128, 64)]
+REV_DEPTH = 3
+# f32, TF32 off: at 64 channels x 128x128 x batch 12 (196608 values a
+# channel) float32 itself is far from exact: autograd's f32 input gradient
+# lies 1.1e-2 of its max from a float64 run of the same chain (an NVIDIA
+# H100 80GB HBM3 at 700 W; 1.8e-2 on a CPU), so no 1e-3-of-max gate holds
+# against autograd there. Each of the Function's f32 gradients is held by
+# its relative L2 distance from the float64 gradient: at most
+# REV_F32_VS_AUTOGRAD times autograd's f32 distance plus 1e-5 (the
+# reconstruction adds its own rounding to the earlier blocks: 1.81 times
+# autograd's distance at worst, in the first block's f kernel, on that card;
+# within 11% for every tensor on a CPU)
+REV_F32_VS_AUTOGRAD = 3.0
+# bf16: each reconstruction starts from outputs rounded to bf16, so the
+# Function's gradient is held by its distance from the f32 gradient, at most
+# REV_BF16_VS_AUTOGRAD times autograd's bf16 distance plus 0.01 (relative
+# L2); the relative L2 against autograd's bf16 gradient is printed beside it
+REV_BF16_VS_AUTOGRAD = 2.0
+# bf16 steps of each memory-mode path from a fixed seed: RevPHiSeg's KL
+# starts near 4e7 and swings for ~8 steps before it falls (an NVIDIA H100
+# 80GB HBM3 at 700 W: 4.07e7, 1.34e9, ..., 2.06e8, 2.98e6, ... 7.4e5 at 12)
+MODE_STEPS = 12
+MODE_TIME_STEPS = 3  # steps a timed round; 2 rounds after those
+REMAT_BATCH = 64
+# the first bf16 RevPHiSeg step against its f32 twin from the same weights
+# and draws: the whole gradient within REV_STEP_GRAD_L2 (relative L2) of the
+# f32 one, and each step's parameter change within ADAM_OF_LR * lr of
+# coupled-L2 Adam's first update written out from that step's own gradient
+REV_STEP_GRAD_L2 = 0.3
+ADAM_OF_LR = 1e-3
 
 
 def log(msg: str) -> None:
@@ -670,12 +733,13 @@ def phiseg_run(model, x, y, post_eps, prior_eps, train: bool):
     return out, aux, {n: p.grad for n, p in model.named_parameters()}
 
 
-def phiseg_parity(dev) -> None:
-    """(a): float32, the same weights and z noise on the card and the CPU."""
+def phiseg_parity(dev, experiment: str = PHISEG_EXPERIMENT, modes=(True, False)) -> None:
+    """(a): float32, the same weights and z noise on the card and the CPU, in
+    train mode (``True`` in ``modes``) and eval mode (``False``)."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.models.registry import get_model
 
-    cfg = get_experiment(PHISEG_EXPERIMENT)
+    cfg = get_experiment(experiment)
     models = {d: get_model("phiseg", **cfg.model_kwargs(), device=d, generator=torch.Generator().manual_seed(5))
               for d in ("cpu", dev)}
     gen = torch.Generator().manual_seed(6)
@@ -683,7 +747,7 @@ def phiseg_parity(dev) -> None:
     y = (torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 9, 1, 4) > 0)[:, 0].long()
     eps = {kind: [torch.randn((PHISEG_PARITY_BATCH, IMAGE >> (lvl + 2), IMAGE >> (lvl + 2), cfg.zdim), generator=gen)
                   for lvl in range(cfg.latent_levels)] for kind in ("post", "prior")}
-    for train in (True, False):
+    for train in modes:
         mode = "train" if train else "eval"
         if not train:  # the same running statistics on both sides
             models[dev].load_state_dict(models["cpu"].state_dict())
@@ -720,7 +784,7 @@ def phiseg_parity(dev) -> None:
         else:
             check(per_tensor <= PHISEG_EVAL_GRAD_OF_MAX, f"f32 eval gradient {worst_name}: {per_tensor:.3e} of max|g|")
             tol = f"tol {PHISEG_EVAL_GRAD_OF_MAX}"
-        log(f"[phiseg] f32 {mode} mode, card vs CPU, batch {PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs "
+        log(f"[phiseg] {experiment} f32 {mode} mode, card vs CPU, batch {PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs "
             f"{out_err:.3e} of max|ref| (tol {of_max}), loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), "
             f"gradient rel L2 {l2:.3e}, worst tensor {worst_name} {per_tensor:.3e} of its max|g| ({tol})")
     del models
@@ -883,12 +947,12 @@ def metrics_parity(dev) -> None:
         check(err <= NCC_ATOL, f"{n_classes} classes: channels-last NCC |diff| {err}")
 
 
-def eval_timing(conv_chain, dev, card: str, log_dir: str) -> dict:
-    """(b): the 100-sample evaluation of one image by bf16 phiseg_7_5_12."""
+def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHISEG_EXPERIMENT) -> dict:
+    """(b): the 100-sample evaluation of one image by bf16 ``experiment``."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer, image_metrics
 
-    cfg = dataclasses.replace(get_experiment(PHISEG_EXPERIMENT), dtype="bfloat16")
+    cfg = dataclasses.replace(get_experiment(experiment), dtype="bfloat16")
     trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((1, IMAGE, IMAGE, 1), generator=gen, device=dev)
@@ -933,11 +997,11 @@ def eval_timing(conv_chain, dev, card: str, log_dir: str) -> dict:
                                                                    y_all[:1])),
         }
     model.train()
-    log(f"[time] PHiSeg {EVAL_SAMPLES}-sample evaluation, each part alone (fenced, min of 3): "
+    log(f"[time] PHiSeg {experiment} {EVAL_SAMPLES}-sample evaluation, each part alone (fenced, min of 3): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f" | card: {card}")
-    log(f"[eval] PHiSeg {PHISEG_EXPERIMENT} bf16, {EVAL_SAMPLES} samples + GED/NCC/Dice + loss of one image: "
+    log(f"[eval] PHiSeg {experiment} bf16, {EVAL_SAMPLES} samples + GED/NCC/Dice + loss of one image: "
         f"GED {ged:.4f} NCC {ncc:.4f} Dice {[round(v, 4) for v in dice.tolist()]} loss {out['loss'].item():.1f}")
-    log(f"[time] PHiSeg {EVAL_SAMPLES}-sample evaluation bf16, one {IMAGE}x{IMAGE} image: {ms:.3f} ms an image "
+    log(f"[time] PHiSeg {experiment} {EVAL_SAMPLES}-sample evaluation bf16, one {IMAGE}x{IMAGE} image: {ms:.3f} ms an image "
         f"(min of {EVAL_TIMED_CALLS} fenced calls, median {sorted(walls)[EVAL_TIMED_CALLS // 2]:.3f}); the host "
         f"issues it in {host:.3f} ms (median {sorted(hosts)[EVAL_TIMED_CALLS // 2]:.3f}) | card: {card}")
     return {"ms": ms, "host_ms": host, "parts_ms": parts}
@@ -1203,12 +1267,319 @@ def harness(conv_chain, dev, card: str, log_root: str) -> dict:
     return result
 
 
+def rev_module_parity(dev, card: str) -> dict:
+    """(a): ``ReversibleChain`` against autograd of the same coupling chain at
+    the full-width block shapes, in f32 (TF32 off) and bf16, each against the
+    chain's float64 gradient."""
+    from unet_zoo_tpu_torch.ops import reversible as rev
+
+    def function(x, ps):
+        return rev.ReversibleChain.apply(x, *ps)[0]
+
+    def autograd(x, ps):
+        return rev.coupling_chain(x, rev._blocks(ps))[0]
+
+    def rel_l2(a, b):
+        return ((a.double() - b).norm() / b.norm()).item()
+
+    result = {}
+    for shape in REV_BLOCK_SHAPES:
+        c = shape[-1]
+        seq = rev.ReversibleSequence(c, c, REV_DEPTH, device=dev, generator=torch.Generator().manual_seed(9)).train()
+        gen = torch.Generator(device=dev).manual_seed(10)
+        x, g = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+        names = ["x"] + [n for n, _ in seq.named_parameters()]
+
+        def grads(fn, dtype):
+            xx = x.to(dtype).requires_grad_()
+            ps = [p.detach().to(torch.float64 if dtype == torch.float64 else torch.float32).requires_grad_()
+                  for p in seq.parameters()]
+            y = fn(xx, ps)
+            return y, torch.autograd.grad(y, [xx, *ps], g.to(dtype))
+
+        (y, got), (y_ref, want) = grads(function, torch.float32), grads(autograd, torch.float32)
+        exact = grads(autograd, torch.float64)[1]
+        check(torch.equal(y, y_ref), f"{shape}: the Function's f32 output differs from the chain's")
+        worst, worst_of_max, ratio = "", 0.0, 0.0
+        for name, a, b, e in zip(names, got, want, exact):
+            if not e.any():  # the coupling biases: an exact zero everywhere
+                check(not a.any() and not b.any(), f"{shape} {name}: a non-zero gradient")
+                continue
+            fn_err, ag_err = rel_l2(a, e), rel_l2(b, e)
+            check(fn_err <= REV_F32_VS_AUTOGRAD * ag_err + 1e-5,
+                  f"{shape} f32 {name}: {fn_err:.3e} from float64, autograd's {ag_err:.3e}")
+            if fn_err / (ag_err + 1e-12) > ratio:
+                worst, ratio = name, fn_err / (ag_err + 1e-12)
+            worst_of_max = max(worst_of_max, ((a - b).abs().max() / b.abs().max()).item())
+        flat = [torch.cat([t.float().flatten() for t in ts]) for ts in (want,) + tuple(
+            grads(fn, torch.bfloat16)[1] for fn in (function, autograd))]
+        f32, fb, ab = flat
+        fn_err, ag_err = rel_l2(fb, f32.double()), rel_l2(ab, f32.double())
+        rel = rel_l2(fb, ab.double())
+        check(fn_err <= REV_BF16_VS_AUTOGRAD * ag_err + 0.01, f"{shape} bf16: {fn_err:.3e} from f32 vs autograd's "
+                                                               f"{ag_err:.3e}")
+        log(f"[memory] ReversibleChain {shape} x{REV_DEPTH} blocks vs autograd of the same chain: f32 output "
+            f"bit-identical, gradients as close to float64 as autograd's (worst ratio of relative L2 distances "
+            f"{ratio:.3f} in {worst}, tol {REV_F32_VS_AUTOGRAD}; Function vs autograd max|diff| up to "
+            f"{worst_of_max:.3e} of max|grad|); bf16 gradient {fn_err:.3e} from the f32 one (autograd's bf16: "
+            f"{ag_err:.3e}; tol {REV_BF16_VS_AUTOGRAD}x + 0.01), {rel:.3e} relative L2 from autograd's bf16 "
+            f"gradient | card: {card}")
+        result[str(shape)] = {"f32_vs_autograd_ratio": ratio, "f32_max_diff_of_max": worst_of_max,
+                              "bf16_from_f32": fn_err, "bf16_autograd_from_f32": ag_err,
+                              "bf16_rel_l2_vs_autograd": rel}
+    return result
+
+
+def z_eps(cfg, batch: int, gen, dev) -> list:
+    """One N(0, 1) tensor a latent level, PHiSeg's z noise shapes."""
+    return [torch.randn((batch, IMAGE >> (lvl + 2), IMAGE >> (lvl + 2), cfg.zdim), generator=gen, device=dev)
+            for lvl in range(cfg.latent_levels)]
+
+
+def stats_fold_once(trainer, x, y, gen, dev) -> float:
+    """One train step from given draws, against a no-grad train-mode forward
+    of a copy of the model from the state before it, on the same augmented
+    batch and z noise: that forward folds each batch statistic into the
+    running ones once, so the step's running statistics must equal it (a
+    second fold in the backward's re-run would move them by ~1% of a
+    statistic). Every statistic must move. Returns max|diff| over the
+    buffer's max|value|."""
+    from unet_zoo_tpu_torch.data.augment import sample_augment_params
+
+    cfg, model = trainer.cfg, trainer.state.model
+    draws = sample_augment_params(gen, x.shape[0], (IMAGE, IMAGE), cfg.augmentation_options, dev)
+    eps = z_eps(cfg, x.shape[0], gen, dev) if cfg.model == "phiseg" else None
+    before = copy.deepcopy(model)
+    trainer.train_step(x, y, draws, eps)
+    got, want = dict(model.named_buffers()), dict(before.named_buffers())
+    still = [n for n, b in want.items() if torch.equal(got[n], b)]
+    check(bool(got) and not still, f"{cfg.experiment_name}: running statistics that did not move: {still}")
+    xa, ya = trainer.augment(x, y, draws)
+    with torch.no_grad():
+        before.train()
+        before(xa, ya, post_eps=eps) if cfg.model == "phiseg" else before(xa)
+    return max(((got[n] - b).abs().max() / b.abs().max()).item() for n, b in want.items())
+
+
+def deterministic_resize():
+    """Context in which the models' ``ops.resize_linear`` runs as two
+    interpolation-matrix products (each matrix ``F.interpolate`` of an
+    identity), whose backward is deterministic: ``F.interpolate``'s bilinear
+    backward on the card adds with atomics, in an order that varies from run
+    to run."""
+    from unet_zoo_tpu_torch import ops
+
+    def matrix(n_in, n_out, align_corners, like):
+        eye = torch.eye(n_in, device=like.device)[:, None]
+        w = torch.nn.functional.interpolate(eye, size=n_out, mode="linear", align_corners=align_corners)
+        return w[:, 0].to(like.dtype)
+
+    def resize_linear(x, out_size, align_corners):
+        wh, ww = (matrix(x.shape[1 + i], out_size[i], align_corners, x) for i in range(2))
+        return torch.einsum("bhwc,hH,wW->bHWc", x, wh, ww)
+
+    return mock.patch.object(ops, "resize_linear", resize_linear)
+
+
+def remat_matches_plain(dev, log_dir: str) -> None:
+    """(c): the remat U-Net step against the plain one from the same state
+    and draws, with cuDNN deterministic and a deterministic resize on both
+    sides: loss and every gradient bit-identical."""
+    from unet_zoo_tpu_torch.data.augment import sample_augment_params
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    base = dataclasses.replace(get_experiment("unet"), dtype="bfloat16", batch_size=REMAT_BATCH)
+    xs, ys = train_batches(1, dev, REMAT_BATCH)
+    draws = sample_augment_params(torch.Generator(device=dev).manual_seed(11), REMAT_BATCH, (IMAGE, IMAGE),
+                                  base.augmentation_options, dev)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with deterministic_resize():
+            for mode in ("plain", "remat"):
+                tr = Trainer(dataclasses.replace(base, reversible_mode=mode), dev, seed=1, log_dir=log_dir)
+                loss = tr.train_step(xs[0], ys[0], draws)["loss"]
+                runs[mode] = (loss, {n: p.grad.clone() for n, p in tr.state.model.named_parameters()})
+                del tr
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (loss_p, grads_p), (loss_r, grads_r) = runs["plain"], runs["remat"]
+    check(torch.equal(loss_p, loss_r), f"remat loss {loss_r.item()} vs plain {loss_p.item()}")
+    differ = [n for n in grads_p if not torch.equal(grads_p[n], grads_r[n])]
+    check(not differ, f"remat gradients differ from plain in {differ}")
+    log(f"[memory] remat U-Net step bs{REMAT_BATCH} bf16 vs the plain step from the same state and draws "
+        f"(cuDNN deterministic, resize as matrix products on both sides): loss {loss_p.item():.6f} and all "
+        f"{len(grads_p)} gradients bit-identical; the U-Net has no running statistics")
+
+
+def mode_slice(conv_chain, dev, card: str, log_dir: str, name: str, batch: int, mode=None) -> dict:
+    """(c) and (e): MODE_STEPS bf16 steps of one memory-mode path from a
+    fixed seed, counted, then timed."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16", batch_size=batch)
+    if mode is not None:
+        cfg = dataclasses.replace(cfg, reversible_mode=mode)
+    label = f"{name} {cfg.effective_reversible_mode} bs{batch} bf16"
+    xs, ys = train_batches(MODE_STEPS, dev, batch)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    model = trainer.state.model
+    params = dict(model.named_parameters())
+    # the biases that BatchNorm follows: the coupling functions' and the BN-followed convs'
+    free = [n for n in params if n.endswith("_bias")
+            or (n.endswith("conv.bias") and f"{n[:-len('conv.bias')]}bn.weight" in params)]
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    first_launches = conv_chain.launches
+    missing = [n for n, p in params.items() if p.grad is None]
+    check(not missing, f"{label}: no gradient in {missing}")
+    nonzero = [n for n in free if bool(params[n].grad.ne(0).any())]
+    check(not nonzero, f"{label}: biases that BatchNorm follows with a non-zero gradient: {nonzero}")
+    dead = [n for n in params if n not in free and not bool(params[n].grad.ne(0).any())]
+    check(not dead, f"{label}: all-zero gradient in {dead}")
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
+    for i in range(1, MODE_STEPS):
+        losses.append(trainer.train_step(xs[i], ys[i])["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = conv_chain.launches
+    losses = torch.stack(losses).float().cpu()
+    log(f"[memory] {label} losses: {' '.join(f'{v:.4g}' for v in losses.tolist())}")
+    check(bool(torch.isfinite(losses).all()), f"{label}: non-finite loss {losses.tolist()}")
+    tail = losses[-3:].mean().item()
+    check(tail < losses[0].item(), f"{label}: loss did not fall: {losses.tolist()}")
+    stats_err = None
+    if list(model.buffers()):
+        stats_err = stats_fold_once(trainer, xs[0], ys[0], torch.Generator(device=dev).manual_seed(12), dev)
+        check(stats_err <= 1e-6, f"{label}: running statistics {stats_err:.3e} off one fold a step")
+    log(f"[memory] {label}: {MODE_STEPS} steps with device augmentation, no host sync inside a step, gradients in "
+        f"all {len(params)} parameters ({len(free)} BN-followed biases an exact zero), "
+        f"{first_launches} conv-chain launches in step 1 and {launched} in all; running statistics "
+        + (f"{stats_err:.3e} from one fold a step" if stats_err is not None else "none")
+        + f"; loss {losses[0]:.4g} -> mean of the last 3 {tail:.4g}")
+
+    step_ms = min(cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), MODE_TIME_STEPS) for _ in range(2))
+    hosts = []
+    for _ in range(MODE_TIME_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(xs[0], ys[0])
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    log(f"[time] {label} train step with device augmentation: {step_ms:.3f} ms, {batch / step_ms * 1e3:.1f} "
+        f"images/s; the host issues a step in {min(hosts):.3f} ms (min of {MODE_TIME_STEPS}) | card: {card}")
+    result = {"first_step_launches": first_launches, "launches": launched, "ms": step_ms,
+              "images_s": batch / step_ms * 1e3, "host_ms": min(hosts), "losses": losses.tolist(),
+              "stats_err": stats_err}
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result
+
+
+def rev_step_agrees(dev, card: str, log_dir: str) -> dict:
+    """(c): the first bf16 ``phiseg_rev_7_5_12`` step at batch 12 against the
+    f32 step from the same weights, batch, augmentation draws and z noise.
+    The loss and the whole gradient agree within bf16's reach, and on each
+    side the parameter change equals coupled-L2 Adam's first update written
+    out from that side's own gradient: ``-lr * g / (|g| + eps)`` with
+    ``g = grad + weight_decay * p`` (Adam's moments are ``g`` and ``g**2``
+    after their bias correction). A falling loss alone cannot show that: the
+    path's loss climbs thirty-fold before it falls."""
+    from unet_zoo_tpu_torch.data.augment import sample_augment_params
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    batch = 12
+    cfg = dataclasses.replace(get_experiment(REV_EXPERIMENT), batch_size=batch)
+    xs, ys = train_batches(1, dev, batch)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    draws = sample_augment_params(gen, batch, (IMAGE, IMAGE), cfg.augmentation_options, dev)
+    eps = z_eps(cfg, batch, gen, dev)
+    lr, wd = cfg.learning_rate, cfg.weight_decay
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = Trainer(dataclasses.replace(cfg, dtype=dtype), dev, seed=0, log_dir=log_dir)
+        params = dict(trainer.state.model.named_parameters())
+        before = {n: p.detach().clone() for n, p in params.items()}
+        loss = trainer.train_step(xs[0], ys[0], draws, eps)["loss"].float()
+        grads = {n: p.grad.detach().clone() for n, p in params.items()}
+        change = {n: p.detach() - before[n] for n, p in params.items()}
+        adam_err = 0.0
+        for n, g in grads.items():
+            g = g + wd * before[n]
+            adam_err = max(adam_err, (change[n] + lr * g / (g.abs() + 1e-8)).abs().max().item())
+        check(adam_err <= ADAM_OF_LR * lr, f"{REV_EXPERIMENT} {dtype}: the first update is {adam_err:.3e} off "
+                                           f"Adam's (tol {ADAM_OF_LR * lr:.1e})")
+        runs[dtype] = (loss, grads, change, adam_err)
+        del trainer, params
+        torch.cuda.empty_cache()
+
+    def rel_l2(a: dict, b: dict) -> float:
+        fa, fb = (torch.cat([t.double().flatten() for t in d.values()]) for d in (a, b))
+        return ((fa - fb).norm() / fb.norm()).item()
+
+    (l32, g32, c32, e32), (l16, g16, c16, e16) = runs["float32"], runs["bfloat16"]
+    loss_rel = abs(l16.item() - l32.item()) / abs(l32.item())
+    grad_l2, change_l2 = rel_l2(g16, g32), rel_l2(c16, c32)
+    check(math.isfinite(loss_rel) and grad_l2 <= REV_STEP_GRAD_L2,
+          f"{REV_EXPERIMENT} bf16 step vs f32: loss {l16.item()} vs {l32.item()}, gradient {grad_l2:.3e} relative L2 "
+          f"(tol {REV_STEP_GRAD_L2})")
+    log(f"[memory] {REV_EXPERIMENT} bs{batch} first step, bf16 vs f32 from the same weights and draws: loss "
+        f"{l16.item():.6g} vs {l32.item():.6g} ({loss_rel:.3e} relative), whole gradient {grad_l2:.3e} relative L2 "
+        f"(tol {REV_STEP_GRAD_L2}), parameter change {change_l2:.3e} relative L2; each side's change off Adam's "
+        f"first update by {e16:.3e} (bf16) and {e32:.3e} (f32), tol {ADAM_OF_LR * lr:.1e} | card: {card}")
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_l2, "change_rel_l2": change_l2,
+            "adam_err": {"bfloat16": e16, "float32": e32}}
+
+
+def memory_modes(conv_chain, dev, card: str, log_dir: str) -> dict:
+    """Phase 8: the remat and reversible memory modes."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    parity = rev_module_parity(dev, card)
+    phiseg_parity(dev, REV_EXPERIMENT, modes=(True,))
+    paths = {"phiseg_rev": mode_slice(conv_chain, dev, card, log_dir, REV_EXPERIMENT, 12),
+             "reversible_unet": mode_slice(conv_chain, dev, card, log_dir, "reversible_unet", 12),
+             "unet_remat": mode_slice(conv_chain, dev, card, log_dir, "unet", REMAT_BATCH, "remat")}
+    per_step = 2 * len(BLOCKS) * STAGES_PER_BLOCK
+    check(paths["unet_remat"]["first_step_launches"] == per_step,
+          f"remat U-Net step: {paths['unet_remat']['first_step_launches']} launches, expected {per_step}")
+    check(paths["phiseg_rev"]["launches"] == 0 and paths["reversible_unet"]["launches"] == 0,
+          "a reversible path launched the conv-chain kernel")
+    log(f"[memory] remat U-Net: {per_step} conv-chain launches a step (21 in the forward, 21 in the backward's "
+        f"re-run); the reversible paths launch none (their coupling functions carry BatchNorm)")
+    remat_matches_plain(dev, log_dir)
+    rev_step = rev_step_agrees(dev, card, log_dir)
+
+    spec = importlib.util.spec_from_file_location("torch_memory", os.path.join(REPO, "tools", "torch_memory.py"))
+    torch_memory = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_memory)
+    rows = torch_memory.memory_table(dev, card, log=log)
+    for tf32 in (False, True):
+        peak = {r["mode"]: r["peak_bytes"] for r in rows
+                if r["experiment"] == "phiseg_7_5_12" and r["batch"] == 12 and r["tf32"] == tf32}
+        check(peak["remat"] < peak["plain"] and peak["reversible"] < peak["plain"],
+              f"PHiSeg f32 bs12 peak memory (TF32 {tf32}): {peak}")
+
+    evaluation = eval_timing(conv_chain, dev, card, log_dir, REV_EXPERIMENT)
+    log(f"[memory] phase 8 took {time.perf_counter() - t0:.1f} s")
+    return {"parity": parity, "paths": paths, "rev_step": rev_step, "memory": rows, "eval100_ms": evaluation["ms"],
+            "eval100_host_ms": evaluation["host_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
     from unet_zoo_tpu_torch.ops.pallas import _build, conv_chain
+    from unet_zoo_tpu_torch.ops.conv import chain_route
     from unet_zoo_tpu_torch.models.registry import get_model
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1292,12 +1663,16 @@ def main() -> int:
     kw = dict(num_classes=2, num_filters=FILTERS, dtype=torch.float32)
     m_gpu = get_model("unet", device=dev, generator=torch.Generator().manual_seed(0), **kw).eval()
     m_cpu = get_model("unet", device="cpu", generator=torch.Generator().manual_seed(0), **kw).eval()
+    f32_launches = conv_chain.launches
     with torch.inference_mode():
         got = m_gpu(x2.to(dev)).cpu()
         want = m_cpu(x2)
+    f32_launches = conv_chain.launches - f32_launches
+    check(f32_launches == len(BLOCKS) * STAGES_PER_BLOCK, f"f32 forward: {f32_launches} conv-chain launches")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    log(f"[slice] f32 batch-2 forward, card kernel vs CPU plain: max|diff| {err:.3e}  "
+    log(f"[slice] f32 batch-2 forward, card ({f32_launches} launches of {chain_route(torch.float32, dev)}) vs CPU "
+        f"plain: max|diff| {err:.3e}  "
         f"max|ref| {scale:.3e}  tol {F32_RTOL * scale:.3e}")
     check(err <= F32_RTOL * scale, f"f32 forward: max|diff| {err} > {F32_RTOL * scale}")
     # the main path's bf16 logits of its first 2 images against the f32 CPU model
@@ -1338,6 +1713,10 @@ def main() -> int:
         eval_parity(dev, log_root)
         harnessed = harness(conv_chain, dev, card, log_root)
         log(f"[eval] phase 7 took {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 8. the remat and reversible memory modes
+        modes = memory_modes(conv_chain, dev, card, log_root)
 
     main = blocks[BATCH]
     log(json.dumps({"kernels": [{
@@ -1367,6 +1746,16 @@ def main() -> int:
             k: v["validation_with_checkpoints_s_per_image"] for k, v in harnessed.items()},
         "phiseg_eval100_ms": evaluation["ms"],
         "phiseg_eval100_host_ms": evaluation["host_ms"],
+        "remat_train_launches": modes["paths"]["unet_remat"]["first_step_launches"],
+        "f32_conv_seq_route": chain_route(torch.float32, dev),
+        "memory_mode_steps": {k: {f: v[f] for f in ("launches", "ms", "images_s", "host_ms", "stats_err")}
+                              for k, v in modes["paths"].items()},
+        "reversible_chain_parity": modes["parity"],
+        "phiseg_rev_bf16_step_vs_f32": modes["rev_step"],
+        "memory_table": [{k: r[k] for k in ("experiment", "batch", "mode", "tf32", "peak_bytes", "state_bytes",
+                                            "saving_vs_plain")} for r in modes["memory"]],
+        "phiseg_rev_eval100_ms": modes["eval100_ms"],
+        "phiseg_rev_eval100_host_ms": modes["eval100_host_ms"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -361,7 +361,7 @@ def test_registry_names_every_jax_experiment():
     ported, unported = set(registry.EXPERIMENTS), set(registry.NOT_PORTED)
     assert not ported & unported and ported | unported == set(jax_list_experiments())
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_experiment("phiseg_rev_7_5_12")
+        get_experiment("phiseg_uzh_rev_7_5_192")
     with pytest.raises(ValueError, match="unknown experiment"):
         get_experiment("resnet")
 
@@ -372,12 +372,13 @@ def test_registry_names_every_jax_experiment():
     ({"dtype": "float16"}, ValueError),
     ({"image_size": (32, 32, 32)}, NotImplementedError),
     ({"image_size": (4, 32)}, ValueError),
-    ({"use_reversible": True}, NotImplementedError),
-    ({"reversible_mode": "remat"}, NotImplementedError),
+    ({"use_reversible": True, "model": "prob_unet"}, NotImplementedError),
+    ({"reversible_mode": "remat", "image_size": (32, 32, 32)}, NotImplementedError),
     ({"model": "phiseg", "latent_levels": 5}, ValueError),
     ({"augment_on": "host"}, NotImplementedError),
     ({"augment_on": "gpu"}, ValueError),
     ({"loader": "mmap"}, ValueError),
+    ({"reversible_mode": "revnet"}, ValueError),
 ])
 def test_config_validate_rejects(change, error):
     with pytest.raises(error):

@@ -18,6 +18,7 @@ import torch
 from unet_zoo_tpu.models.blocks import DownBlock as JaxDownBlock
 from unet_zoo_tpu.models.registry import get_model as jax_get_model
 from unet_zoo_tpu.models.unet import UNet as JaxUNet
+from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.bridge import load_jax_params, state_dict_from_jax
 from unet_zoo_tpu_torch.models.blocks import DownBlock
 from unet_zoo_tpu_torch.models.registry import get_model
@@ -144,8 +145,9 @@ def test_registry_and_unported_modes():
         get_model("prob_unet", num_classes=2)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("resnet")
-    with pytest.raises(NotImplementedError):
-        UNet(2, FILTERS, reversible_mode="reversible")
+    assert isinstance(UNet(2, FILTERS, reversible_mode="reversible").down0.rev, ops.ReversibleSequence)
+    with pytest.raises(ValueError, match="memory mode"):
+        UNet(2, FILTERS, reversible_mode="revnet")
 
 
 def test_same_seed_same_weights():
@@ -167,6 +169,7 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "
             "unet_zoo_tpu_torch.training.trainer, unet_zoo_tpu_torch.training.cli, "
             "unet_zoo_tpu_torch.models.phiseg, unet_zoo_tpu_torch.models.prob_unet, unet_zoo_tpu_torch.ops.norm, "
+            "unet_zoo_tpu_torch.ops.reversible, "
             "unet_zoo_tpu_torch.metrics, unet_zoo_tpu_torch.metrics.dice, unet_zoo_tpu_torch.metrics.ged, "
             "unet_zoo_tpu_torch.metrics.ncc, unet_zoo_tpu_torch.utils, unet_zoo_tpu_torch.utils.summary, "
             "unet_zoo_tpu_torch.train, unet_zoo_tpu_torch.eval; "

@@ -5,13 +5,17 @@ and, for a model with BatchNorm, ``jax.device_get(variables["batch_stats"])``
 return for a model of ``unet_zoo_tpu``. A leaf at ``a/b/.../kernel`` becomes
 ``a.b....weight``, ``.../bias`` becomes ``....bias`` and a BatchNorm's
 ``.../scale`` becomes ``....weight``; in ``batch_stats``, ``.../mean`` and
-``.../var`` become ``....running_mean`` and ``....running_var``. Conv kernels
-go from flax's HWIO to the port's OIHW (``nn.Conv2d`` layout) by
-``transpose(3, 2, 0, 1)``. Values stay float32 on the CPU.
+``.../var`` become ``....running_mean`` and ``....running_var``. A
+reversible sequence's flat leaves keep their names: ``.../rev/block0_f_kernel``,
+``_bias``, ``_scale`` and ``_shift`` become ``....rev.block0_f_kernel`` and so
+on, and its ``block0_f_mean``/``_var`` statistics the buffers of those names.
+Conv kernels go from flax's HWIO to the port's OIHW (``nn.Conv2d`` layout)
+by ``transpose(3, 2, 0, 1)``. Values stay float32 on the CPU.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -31,12 +35,17 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+# a reversible sequence's leaves, which keep their names
+_REV_PARAM = re.compile(r"block\d+_[fg]_(kernel|bias|scale|shift)")
+_REV_STAT = re.compile(r"block\d+_[fg]_(mean|var)")
 
 
 def _torch_name(path: str, leaves: Mapping[str, str]) -> str:
     *scope, leaf = path.split("/")
+    if (_REV_STAT if leaves is _STAT_LEAVES else _REV_PARAM).fullmatch(leaf):
+        return ".".join(scope + [leaf])
     if leaf not in leaves:
-        raise KeyError(f"unexpected leaf '{path}' (expected one of {sorted(leaves)})")
+        raise KeyError(f"unexpected leaf '{path}' (expected one of {sorted(leaves)} or a reversible block's)")
     return ".".join(scope + [leaves[leaf]])
 
 

@@ -5,8 +5,7 @@
 step, the evaluation and the train loop read, with the JAX package's names
 and defaults; the other families' fields come back with their ports.
 ``validate`` raises on what the JAX package rejects and on what the port
-does not run yet (ProbUNet, 3D, the remat and reversible memory modes,
-host augmentation). ``SystemConfig`` is the JAX package's whole, so that one
+does not run yet (ProbUNet, 3D, host augmentation). ``SystemConfig`` is the JAX package's whole, so that one
 ``config.json`` loads in both packages. ``load_experiment`` takes a registry
 name or a ``.py`` file that defines ``config``.
 """
@@ -21,6 +20,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from unet_zoo_tpu_torch.data.augment import AugmentOptions
+from unet_zoo_tpu_torch.ops.conv import MEMORY_MODES
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -100,6 +100,7 @@ class ExperimentConfig:
             num_classes=self.n_classes,
             num_filters=tuple(self.filter_channels),
             in_channels=self.input_channels,
+            reversible_mode=self.effective_reversible_mode,
             dtype=_DTYPES[self.dtype],
         )
         if self.model == "phiseg":
@@ -117,8 +118,8 @@ class ExperimentConfig:
             raise ValueError(f"unknown model '{self.model}'")
         if self.model not in ("unet", "phiseg"):
             raise NotImplementedError(f"model '{self.model}' is not ported to PyTorch yet")
-        if self.effective_reversible_mode != "plain":
-            raise NotImplementedError(f"reversible_mode '{self.effective_reversible_mode}' is not ported yet")
+        if self.effective_reversible_mode not in MEMORY_MODES:
+            raise ValueError(f"reversible_mode must be one of {MEMORY_MODES}, got '{self.effective_reversible_mode}'")
         if self.model == "phiseg" and not 1 <= self.latent_levels <= len(self.filter_channels):
             raise ValueError(f"latent_levels {self.latent_levels} must be in [1, {len(self.filter_channels)}]")
         if self.dtype not in _DTYPES:

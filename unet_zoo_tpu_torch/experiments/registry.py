@@ -1,13 +1,14 @@
 """Built-in experiments, a jax-free copy of ``unet_zoo_tpu.experiments.registry``.
 
-The ``unet`` entry and the plain 2D LIDC PHiSeg entries are ported (each
-with the JAX entry's values of the fields the port carries); the JAX
-package's other names (reversible, UZH prostate, ProbUNet, BraTS) raise
-``NotImplementedError``.
+The ``unet`` and ``reversible_unet`` entries and the 2D LIDC PHiSeg entries,
+plain and reversible, are ported (each with the JAX entry's values of the
+fields the port carries); the JAX package's other names (UZH prostate,
+ProbUNet, BraTS) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
 
 from unet_zoo_tpu_torch.data.augment import AugmentOptions
@@ -36,14 +37,19 @@ def _unet() -> ExperimentConfig:
     )
 
 
-def _phiseg_lidc(batch_size: int) -> ExperimentConfig:
-    """reference models/experiments/phiseg_7_5_<bs>.py"""
+def _reversible_unet() -> ExperimentConfig:
+    return dataclasses.replace(_unet(), experiment_name="ReversibleUnet", use_reversible=True)
+
+
+def _phiseg_lidc(batch_size: int, reversible: bool = False) -> ExperimentConfig:
+    """reference models/experiments/phiseg_[rev_]7_5_<bs>.py"""
     return ExperimentConfig(
-        experiment_name=f"PHISeg_7_5_{batch_size}",
+        experiment_name=f"PHISeg{'Rev' if reversible else ''}_7_5_{batch_size}",
         model="phiseg",
         filter_channels=(32, 64, 128, 192, 192, 192, 192),
         latent_levels=5,
         n_classes=2,
+        use_reversible=reversible,
         batch_size=batch_size,
         image_size=(128, 128),
         augmentation_options=_LIDC_AUG,
@@ -63,19 +69,24 @@ def _phiseg_big() -> ExperimentConfig:
     )
 
 
+def _phiseg_big_reversible() -> ExperimentConfig:
+    return dataclasses.replace(_phiseg_big(), experiment_name="PHISegBigRev", use_reversible=True)
+
+
 EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
     "unet": _unet,
+    "reversible_unet": _reversible_unet,
     **{f"phiseg_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b))(bs) for bs in (12, 24, 36, 48, 56)},
+    **{f"phiseg_rev_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b, True))(bs) for bs in (12, 24, 36, 48, 56, 60, 64)},
     "phiseg_big": _phiseg_big,
+    "phiseg_big_reversible": _phiseg_big_reversible,
 }
 
 # in the JAX package's registry, not ported yet
 NOT_PORTED = (
-    *(f"phiseg_rev_7_5_{bs}" for bs in (12, 24, 36, 48, 56, 60, 64)),
-    "phiseg_big_reversible",
     *(f"phiseg_uzh_7_5_{res}" for res in (192, 256, 384, 512)),
     *(f"phiseg_uzh_rev_7_5_{res}" for res in (192, 224, 256, 384, 512)),
-    "prob_unet", "prob_unet_reversible", "reversible_unet", "phiseg_brats",
+    "prob_unet", "prob_unet_reversible", "phiseg_brats",
 )
 
 

@@ -1,4 +1,4 @@
-"""PHiSeg 2D, the twin of ``unet_zoo_tpu.models.phiseg`` (plain mode, NHWC).
+"""PHiSeg 2D, the twin of ``unet_zoo_tpu.models.phiseg`` (NHWC), in the three memory modes.
 
 A hierarchical conditional VAE for segmentation (arXiv:1906.04045):
 
@@ -34,6 +34,15 @@ resize and to ``dtype or float32`` before each embed; the heads take no
 dtype, so the logits and their accumulation are bf16 and the CE is float32.
 A tuple input is concatenated before its conv (the JAX package splits the
 kernel instead).
+
+Memory modes (``reversible_mode``), as in the JAX model: "remat" runs every
+conv sequence under ``ops.remat`` with the plain parameter tree;
+"reversible" (RevPHiSeg) makes the down blocks, the up blocks, the
+``_SampleZ`` sequences, the likelihood's embeds and its post-c sequences
+``ReversibleSequence``s of ``REV_DEPTHS_2D`` = (down, up, sample_z, embed,
+post_c) coupling blocks. In both memory modes the likelihood's
+resolution-increase stages, which sit at the largest sizes, run under
+``ops.remat`` with their plain parameters.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from unet_zoo_tpu_torch import ops
-from unet_zoo_tpu_torch.models.blocks import PhiDownBlock
+from unet_zoo_tpu_torch.models.blocks import PhiDownBlock, seq_name
 from unet_zoo_tpu_torch.models.prob_unet import kl_two_gauss_diag
 from unet_zoo_tpu_torch.models.unet import softmax_cross_entropy
 
@@ -54,58 +63,72 @@ Levels = List[torch.Tensor]
 # the weight of level l's KL term is EXPONENTIAL_WEIGHT ** l with exponential_weighting
 EXPONENTIAL_WEIGHT = 4.0
 
+# coupling blocks of each reversible sequence kind: (down, up, sample_z, embed, post_c)
+REV_DEPTHS_2D = (3, 2, 3, 2, 2)
 
-def _seq(in_channels: int, features: int, depth: int, **kw) -> ops.ConvSeq:
-    return ops.ConvSeq(in_channels, features, depth, norm=True, init_scheme="torch_default", **kw)
+
+def _seq(in_channels: int, features: int, depth: int, mode: str = "plain", rev_depth: Optional[int] = None,
+         **kw) -> nn.Module:
+    return ops.conv_sequence(in_channels, features, depth, mode=mode, rev_depth=rev_depth, norm=True,
+                             init_scheme="torch_default", **kw)
 
 
 class _SampleZ(nn.Module):
-    """2 conv+BN+ReLU, then 1x1 ``mu`` and softplus 1x1 ``sigma`` heads."""
+    """2 conv+BN+ReLU (or ``REV_DEPTHS_2D[2]`` coupling blocks), then 1x1
+    ``mu`` and softplus 1x1 ``sigma`` heads."""
 
-    def __init__(self, in_channels: int, zdim: int, dtype=None, device=None, generator=None):
+    def __init__(self, in_channels: int, zdim: int, mode: str = "plain", dtype=None, device=None, generator=None):
         super().__init__()
-        self.convs = _seq(in_channels, in_channels, 2, dtype=dtype, device=device, generator=generator)
+        self.seq_name = seq_name(mode)
+        self.add_module(self.seq_name, _seq(in_channels, in_channels, 2, mode, REV_DEPTHS_2D[2], dtype=dtype,
+                                            device=device, generator=generator))
         self.mu = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator)
         self.sigma = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator)
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.convs(x)
+        x = getattr(self, self.seq_name)(x)
         return self.mu(x).float(), F.softplus(self.sigma(x).float())
 
 
 class _PhiUpBlock(nn.Module):
     """z resized (bilinear, ``align_corners=True``) to the skip's exact
-    shape, 2 conv+BN+ReLU, returned beside the skip as an implicit concat."""
+    shape, 2 conv+BN+ReLU (or ``REV_DEPTHS_2D[1]`` coupling blocks), returned
+    beside the skip as an implicit concat."""
 
-    def __init__(self, zdim: int, features: int, dtype=None, device=None, generator=None):
+    def __init__(self, zdim: int, features: int, mode: str = "plain", dtype=None, device=None, generator=None):
         super().__init__()
-        self.convs = _seq(zdim, features, 2, dtype=dtype, device=device, generator=generator)
+        self.seq_name = seq_name(mode)
+        self.add_module(self.seq_name, _seq(zdim, features, 2, mode, REV_DEPTHS_2D[1], dtype=dtype, device=device,
+                                            generator=generator))
 
     def forward(self, z: torch.Tensor, bridge: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = ops.resize_linear(z.to(bridge.dtype), bridge.shape[1:3], align_corners=True)
-        return self.convs(x), bridge
+        return getattr(self, self.seq_name)(x), bridge
 
 
 class _PhiEncoder(nn.Module):
     """The posterior (``is_posterior``: the mask joins the image) or the prior net."""
 
     def __init__(self, in_channels: int, num_filters: Sequence[int], latent_levels: int, is_posterior: bool,
-                 mask_channels: int = 2, zdim: int = 2, dtype=None, device=None, generator=None):
+                 mask_channels: int = 2, zdim: int = 2, reversible_mode: str = "plain", dtype=None, device=None,
+                 generator=None):
         super().__init__()
         R, L = len(num_filters), latent_levels
         self.is_posterior = is_posterior
         self.mask_channels = mask_channels
         self.latent_levels = L
         kw = dict(dtype=dtype, device=device, generator=generator)
+        mode = reversible_mode
         c = in_channels + (mask_channels if is_posterior else 0)
         for i, f in enumerate(num_filters):
-            self.add_module(f"down{i}", PhiDownBlock(c, f, pool=i != 0, **kw))
+            self.add_module(f"down{i}", PhiDownBlock(c, f, pool=i != 0, reversible_mode=mode,
+                                                     rev_depth=REV_DEPTHS_2D[0], **kw))
             c = f
         for i in range(L - 1):
-            self.add_module(f"up{i}", _PhiUpBlock(zdim, 2 * num_filters[0], **kw))
+            self.add_module(f"up{i}", _PhiUpBlock(zdim, 2 * num_filters[0], mode, **kw))
         for i in range(L):
             c = num_filters[-1] if i == 0 else 2 * num_filters[0] + num_filters[R - 1 - i]
-            self.add_module(f"samplez{i}", _SampleZ(c, zdim, **kw))
+            self.add_module(f"samplez{i}", _SampleZ(c, zdim, mode, **kw))
         self.num_levels = R
 
     def trunk(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> Tuple[Levels, torch.Tensor]:
@@ -159,7 +182,8 @@ class _PhiLikelihood(nn.Module):
     """Decodes the latent hierarchy into per-level residual logits."""
 
     def __init__(self, num_classes: int, num_filters: Sequence[int], latent_levels: int,
-                 image_size: Sequence[int], zdim: int = 2, dtype=None, device=None, generator=None):
+                 image_size: Sequence[int], zdim: int = 2, reversible_mode: str = "plain", dtype=None, device=None,
+                 generator=None):
         super().__init__()
         R, L = len(num_filters), latent_levels
         self.num_filters = tuple(num_filters)
@@ -167,19 +191,22 @@ class _PhiLikelihood(nn.Module):
         self.image_size = tuple(image_size)
         self.dtype = dtype
         kw = dict(dtype=dtype, device=device, generator=generator)
+        mode = reversible_mode
+        # the resolution-increase stages stay conv sequences, under remat in both memory modes
+        incres_mode = "plain" if mode == "plain" else "remat"
         lvl_diff = R - L
         for j in range(L):  # the j-th embed handles latent level L - 1 - j
             feats = num_filters[L - 1 - j]
-            self.add_module(f"embed{j}", _seq(zdim, feats, 2, **kw))
+            self.add_module(f"embed{j}", _seq(zdim, feats, 2, mode, REV_DEPTHS_2D[3], **kw))
             for t in range(lvl_diff):
-                self.add_module(f"incres{j}_{t}", _seq(feats, feats, 1, **kw))
+                self.add_module(f"incres{j}_{t}", _seq(feats, feats, 1, incres_mode, **kw))
 
         def post_c_channels(i: int) -> int:
             return num_filters[L - 1] if i == L - 1 else num_filters[i + lvl_diff]
 
         for i in range(L - 1):
             self.add_module(f"postc{i}", _seq(num_filters[i] + post_c_channels(i + 1),
-                                              num_filters[i + lvl_diff], 2, **kw))
+                                              num_filters[i + lvl_diff], 2, mode, REV_DEPTHS_2D[4], **kw))
         for j in range(L):
             self.add_module(f"head{j}", ops.ConvBNAct(
                 post_c_channels(L - 1 - j), num_classes, kernel_size=1, norm=False, act=False,
@@ -221,7 +248,8 @@ class PHiSeg(nn.Module):
 
     def __init__(self, num_classes: int, num_filters: Sequence[int] = (32, 64, 128, 192, 192, 192, 192),
                  latent_levels: int = 5, zdim: int = 2, image_size: Sequence[int] = (128, 128),
-                 in_channels: int = 1, exponential_weighting: bool = True, kl_parity: bool = True,
+                 in_channels: int = 1, reversible_mode: str = "plain", exponential_weighting: bool = True,
+                 kl_parity: bool = True,
                  dtype: Optional[torch.dtype] = None, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not 1 <= latent_levels <= len(num_filters):
@@ -229,8 +257,8 @@ class PHiSeg(nn.Module):
         self.latent_levels = latent_levels
         self.exponential_weighting = exponential_weighting
         self.kl_parity = kl_parity
-        kw = dict(num_filters=tuple(num_filters), latent_levels=latent_levels, zdim=zdim, dtype=dtype,
-                  device=device, generator=generator)
+        kw = dict(num_filters=tuple(num_filters), latent_levels=latent_levels, zdim=zdim,
+                  reversible_mode=reversible_mode, dtype=dtype, device=device, generator=generator)
         self.posterior = _PhiEncoder(in_channels, is_posterior=True, mask_channels=num_classes, **kw)
         self.prior = _PhiEncoder(in_channels, is_posterior=False, **kw)
         self.likelihood = _PhiLikelihood(num_classes, image_size=image_size, **kw)

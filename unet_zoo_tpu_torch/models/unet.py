@@ -1,9 +1,13 @@
-"""U-Net, the twin of ``unet_zoo_tpu.models.unet`` (plain mode, NHWC).
+"""U-Net, the twin of ``unet_zoo_tpu.models.unet`` (NHWC), in the three memory modes.
 
-Every down and up block is one fused conv chain (``ops.ConvSeq``), so on a
-CUDA device the forward runs the hand-written kernel of
-``csrc/conv_chain.cu`` 3 times per block: 21 launches for the 7 blocks of
-the 4-level net. The 1x1 ``last`` conv and the resizes are library ops.
+In "plain" and "remat" every down and up block is one fused conv chain
+(``ops.ConvSeq``), so on a CUDA device the bf16 forward runs the
+hand-written kernel of ``csrc/conv_chain.cu`` 3 times per block: 21
+launches for the 7 blocks of the 4-level net, and in "remat" 21 more in the
+backward's re-run. In "reversible" (the ``reversible_unet`` experiment)
+every block is a ``ReversibleSequence`` whose coupling functions carry
+BatchNorm, as in the JAX model, and run as library ops. The 1x1 ``last``
+conv and the resizes are library ops.
 """
 
 from __future__ import annotations
@@ -24,18 +28,17 @@ class UNet(nn.Module):
     Up path: bilinear resize (``align_corners=False``) to the skip's exact
     spatial shape, concat ``(upsampled, skip)``, then a 3-conv block.
     ``in_channels`` is explicit here (the JAX model infers it at init).
-    With no BatchNorm, ``train()`` and ``eval()`` change nothing: the JAX
-    model's ``train`` flag only selects batch statistics.
+    ``train()`` and ``eval()`` stand for the JAX model's ``train`` flag: they
+    select BatchNorm's batch or running statistics, which only the
+    reversible blocks have.
     """
 
     def __init__(self, num_classes: int, num_filters: Sequence[int] = (32, 64, 128, 192),
                  in_channels: int = 1, reversible_mode: str = "plain", dtype: Optional[torch.dtype] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if reversible_mode != "plain":
-            raise NotImplementedError(f"reversible_mode={reversible_mode!r} is not ported yet")
         self.num_filters = tuple(num_filters)
-        kw = dict(dtype=dtype, device=device, generator=generator)
+        kw = dict(reversible_mode=reversible_mode, dtype=dtype, device=device, generator=generator)
         n = len(self.num_filters)
         c = in_channels
         for i, f in enumerate(self.num_filters):

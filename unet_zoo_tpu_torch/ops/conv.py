@@ -10,6 +10,10 @@
                   U-Net block) it runs as the fused conv-chain kernel; with
                   norm (every PHiSeg sequence) as library ops, as in the JAX
                   package, whose BN sequences never reach its Pallas kernel.
+* ``conv_sequence`` — a sequence in one of the memory modes: ``plain``
+                  (``ConvSeq``), ``remat`` (the same ``ConvSeq`` under
+                  ``remat``, the twin of ``nn.remat``) or ``reversible``
+                  (``ops/reversible.py``).
 
 Parameters are float32 and OIHW (``nn.Conv2d`` layout) and are drawn on the
 CPU from an explicit ``torch.Generator`` (so a seed gives the same weights
@@ -20,17 +24,48 @@ the result is cast back to it (``conv_chain.conv2d_nhwc``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from unet_zoo_tpu_torch.ops import init as init_lib
-from unet_zoo_tpu_torch.ops.norm import BatchNorm
+from unet_zoo_tpu_torch.ops.norm import BatchNorm, recomputing
 from unet_zoo_tpu_torch.ops.pallas.conv_chain import conv2d_nhwc, fused_conv_chain, pack_kernel
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+MEMORY_MODES = ("plain", "remat", "reversible")
+
+
+def chain_route(dtype: torch.dtype, device) -> str:
+    """What ``ConvSeq(norm=False)`` runs a chain of ``dtype`` on ``device``
+    with: the hand-written kernel on CUDA, "conv3x3_bf16_wgmma" for bf16 or
+    "conv3x3_f32_fma" for float32 (CUDA-core FMA, full f32 precision;
+    ``tools/torch_f32_route.py`` times it against cuDNN), or "plain", the
+    chain's plain version, on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "conv3x3_f32_fma" if dtype == torch.float32 else "conv3x3_bf16_wgmma"
+
+
+def _recompute_contexts():
+    return contextlib.nullcontext(), recomputing()
+
+
+def remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``, the twin of JAX's
+    ``nn.remat``: autograd keeps the inputs and the backward runs ``fn``
+    again in place of storing what is inside it. A train-mode BatchNorm in
+    that re-run leaves its running statistics alone (``norm.recomputing``),
+    so they move once a step. Nothing inside draws random numbers, so the
+    RNG state is not saved. Without grad mode this is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=_recompute_contexts)
 
 
 def _concat(x: Tensors) -> torch.Tensor:
@@ -115,23 +150,28 @@ class ConvSeq(nn.Module):
 
     With ``norm`` the layers run one by one as library ops. Without it the
     sequence runs as one fused conv chain: the kernel of
-    ``ops/pallas/conv_chain.py`` on CUDA, its plain version on the CPU.
-    Gradients reach the float32 ``weight``/``bias`` parameters on both
-    (``FusedConvChain`` on CUDA).
+    ``ops/pallas/conv_chain.py`` on CUDA, its plain version on the CPU
+    (``chain_route``). Gradients reach the float32 ``weight``/``bias``
+    parameters on both (``FusedConvChain`` on CUDA).
 
     The CUDA chain packs the kernels into the kernel's weight layout in
     buffers allocated once per (dtype, device) and refilled on every
     forward, one copy per stage. A cache keyed on the parameters' ``_version``
     would go stale: ``torch.optim.Adam(fused=True)`` updates them in place
-    without bumping it."""
+    without bumping it.
+
+    With ``remat`` the sequence runs under ``remat`` (after a tuple input is
+    concatenated), with the same parameters: the backward runs it again, so
+    a BN-free chain on CUDA launches its kernel twice a step."""
 
     def __init__(self, in_channels: int, features: int, depth: int, norm: bool = False,
-                 init_scheme: str = "he_normal", dtype: Optional[torch.dtype] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 init_scheme: str = "he_normal", remat: bool = False, dtype: Optional[torch.dtype] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.norm = norm
+        self.remat = remat
         self.dtype = dtype
         for i in range(depth):
             self.add_module(f"conv{i}", ConvBNAct(
@@ -148,6 +188,9 @@ class ConvSeq(nn.Module):
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
+        return remat(self._run, x) if self.remat else self._run(x)
+
+    def _run(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm:
             for layer in self.children():
                 x = layer(x)
@@ -157,3 +200,27 @@ class ConvSeq(nn.Module):
         weights = [c.weight for c in convs]
         packed = self._packed_kernels(weights, x.dtype) if x.is_cuda else None
         return fused_conv_chain(x, weights, [c.bias for c in convs], packed=packed)
+
+
+def conv_sequence(in_channels: int, features: int, depth: int, mode: str = "plain", rev_depth: Optional[int] = None,
+                  norm: bool = True, init_scheme: str = "torch_default", dtype: Optional[torch.dtype] = None,
+                  device=None, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """A conv sequence in memory mode ``mode``, the twin of the JAX
+    package's ``conv_sequence``:
+
+    * "plain": ``ConvSeq``, every activation stored for the backward;
+    * "remat": the same ``ConvSeq`` under ``remat``, the same parameters
+      (``conv{i}``), so checkpoints interchange with "plain";
+    * "reversible": ``ReversibleSequence`` of ``rev_depth`` (default
+      ``depth``) coupling blocks, another parameter tree; it always carries
+      BatchNorm, whatever ``norm`` says, as in the JAX package.
+    """
+    if mode == "reversible":
+        from unet_zoo_tpu_torch.ops.reversible import ReversibleSequence
+
+        return ReversibleSequence(in_channels, features, rev_depth if rev_depth is not None else depth,
+                                  init_scheme=init_scheme, dtype=dtype, device=device, generator=generator)
+    if mode not in MEMORY_MODES:
+        raise ValueError(f"memory mode must be one of {MEMORY_MODES}, got '{mode}'")
+    return ConvSeq(in_channels, features, depth, norm=norm, init_scheme=init_scheme, remat=mode == "remat",
+                   dtype=dtype, device=device, generator=generator)

@@ -13,13 +13,38 @@ each way on the card. It takes the variance in one Welford pass where the
 JAX module takes ``max(E[x^2] - E[x]^2, 0)``; the two differ in float32
 rounding only (``tests/test_torch_ops.py`` holds them together). Sync-BN
 over several cards (the JAX module's ``axis_name``) is not ported.
+
+Under ``recomputing()`` (the backward's re-run of a checkpointed sequence,
+``ops/conv.py`` ``remat``) a train-mode BatchNorm normalises with the batch
+statistics and leaves the running ones alone: the forward already folded
+this batch in once, as the JAX package's ``nn.remat`` mutates
+``batch_stats`` once.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a checkpoint's recompute on this thread (where autograd runs it)."""
+    _state.depth = getattr(_state, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _state.depth -= 1
+
+
+def is_recomputing() -> bool:
+    return getattr(_state, "depth", 0) > 0
 
 
 class BatchNorm(nn.Module):
@@ -34,8 +59,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Normalise NHWC ``x`` over (N, H, W); in train mode the running
-        statistics update in place (no host sync)."""
+        statistics update in place (no host sync), except in a recompute."""
         # NHWC permuted to NCHW is a channels_last view, taken without a copy
-        y = F.batch_norm(x.float().permute(0, 3, 1, 2), self.running_mean, self.running_var,
-                         self.weight, self.bias, self.training, self.momentum, self.eps)
+        mean, var = self.running_mean, self.running_var
+        if self.training and is_recomputing():
+            # throwaway copies take the update: the same op saves the same
+            # tensors for the backward as in the forward, which checkpoint checks
+            mean, var = mean.clone(), var.clone()
+        y = F.batch_norm(x.float().permute(0, 3, 1, 2), mean, var, self.weight, self.bias, self.training,
+                         self.momentum, self.eps)
         return y.permute(0, 2, 3, 1).to(x.dtype)

@@ -40,6 +40,7 @@ from unet_zoo_tpu_torch import metrics as M
 from unet_zoo_tpu_torch.data.augment import AugmentParams, sample_augment_params, warp_batch_2d
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig
 from unet_zoo_tpu_torch.models.registry import get_model, resolve_device
+from unet_zoo_tpu_torch.ops.conv import chain_route
 from unet_zoo_tpu_torch.training.schedule import plateau_init, plateau_update
 from unet_zoo_tpu_torch.training.state import TrainState, restore_checkpoint, save_checkpoint
 from unet_zoo_tpu_torch.utils.summary import MetricsWriter
@@ -106,8 +107,14 @@ class Trainer:
         self.seed = cfg.seed if seed is None else seed
         # two seeds split from one, as the JAX trainer splits its root key
         k_params, k_aug = torch.randint(2 ** 62, (2,), generator=torch.Generator().manual_seed(self.seed)).tolist()
-        model = get_model(cfg.model, **cfg.model_kwargs(), device=self.device,
+        model_kwargs = cfg.model_kwargs()
+        model = get_model(cfg.model, **model_kwargs, device=self.device,
                           generator=torch.Generator().manual_seed(k_params))
+        # the BN-free conv chains (the U-Net's plain and remat blocks): the
+        # hand-written kernel of the compute dtype, or the CPU's plain version
+        self.chain_route = chain_route(model_kwargs["dtype"] or torch.float32, self.device)
+        log.info("%s: %s, memory mode %s, %s compute on %s; BN-free conv chains run on: %s", cfg.experiment_name,
+                 cfg.model, cfg.effective_reversible_mode, cfg.dtype, self.device, self.chain_route)
         self.state = TrainState(
             model=model,
             optimizer=adam_coupled_l2(model.parameters(), cfg.learning_rate, cfg.weight_decay),
