@@ -108,7 +108,28 @@ Phases, each printing its own lines:
    the U-Net at 64), with remat and reversible below plain for PHiSeg at
    batch 12 in both; (e) each path's
    images/s and host issue time, and the 100-sample evaluation of one image
-   by the bf16 ``phiseg_rev_7_5_12``.
+   by the bf16 ``phiseg_rev_7_5_12``;
+9. the Probabilistic U-Net (``prob_unet``: a 7-level BN-free trunk, filters
+   32/64/128/192/192/192/192, whose 13 blocks launch the conv-chain kernel
+   39 times a forward; two BN encoders; ``latent_dim`` 6, ``no_convs_fcomb``
+   3): (a) the float32 model at batch 2 on the card against the CPU, same
+   weights and z noise, TF32 off, in eval mode (every output and, per
+   tensor, every gradient) and train mode (outputs, loss terms, the whole
+   gradient, running statistics), at phase 6's gates; (b) the 13 trunk
+   block shapes at batch 12, kernel against plain in float32 and bf16 with
+   each bf16 stage's plan, and the float32 kernel's time per block there
+   and at the U-Net's 7 blocks, beside cuDNN f32 (TF32 off) and the bound
+   at the f32 CUDA-core peak; (c) PROB_STEPS bf16 steps at batch 12 with
+   device augmentation: 39 launches a step, no host sync, a finite loss,
+   ``last_conv``'s gradient an exact zero and its change Adam's decay-only
+   update written out, each BN-followed bias of the encoders and fcomb
+   carrying the regularizer's term alone (REG_GRAD_RTOL), then ms a step,
+   images/s, host issue ms and the phases; (d) the registered float32 step
+   (39 launches of ``conv3x3_f32_fma``) beside the same step with the
+   trunk on cuDNN f32; (e) ``eval_image`` of one image with 100 samples (78
+   launches); (f) PROB_STEPS bf16 steps of ``prob_unet_reversible`` (no
+   launch) with its evaluation; (g) ``train``/``validate``/``test`` on the
+   synthetic LIDC data of phase 7.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -167,8 +188,10 @@ EDGE_SHAPES = [
     ((1, 13, 21, 96), [(96, 192), (192, 5)]),
     ((2, 19, 35, 1), [(1, 32), (32, 200)]),
 ]
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W);
+# float32 outside the tensor cores for the f32 kernel's CUDA-core FMA
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
 # the machine code every bf16 kernel instantiation must hold, and must not
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
@@ -285,6 +308,46 @@ REMAT_BATCH = 64
 # coupled-L2 Adam's first update written out from that step's own gradient
 REV_STEP_GRAD_L2 = 0.3
 ADAM_OF_LR = 1e-3
+
+
+# phase 9: ProbUNet
+PROB_EXPERIMENT = "prob_unet"
+PROB_REV_EXPERIMENT = "prob_unet_reversible"
+# the 13 trunk blocks of the 7-level prob_unet experiment at full width:
+# (name, spatial size, C_in after the concat, C_out); 39 launches a forward
+PROB_BLOCKS = [
+    ("down0", 128, 1, 32), ("down1", 64, 32, 64), ("down2", 32, 64, 128), ("down3", 16, 128, 192),
+    ("down4", 8, 192, 192), ("down5", 4, 192, 192), ("down6", 2, 192, 192), ("up5", 4, 384, 192),
+    ("up4", 8, 384, 192), ("up3", 16, 384, 192), ("up2", 32, 320, 128), ("up1", 64, 192, 64),
+    ("up0", 128, 96, 32),
+]
+PROB_LAUNCHES = len(PROB_BLOCKS) * STAGES_PER_BLOCK
+PROB_BATCH = 12
+# the batches at which the ProbUNet path runs its trunk: a sample's and a
+# test image's loss forward (1), the train step (12), a validation image's
+# loss repeats (validation_samples, 16)
+PROB_CHECK_BATCHES = (1, PROB_BATCH, HARNESS_VALIDATION_SAMPLES)
+PROB_STEPS = 12
+# f32 card vs CPU in eval mode, each gradient tensor's relative L2 distance:
+# single entries of the trunk's gradients move further than PHiSeg's (7.5e-3
+# of the tensor's max|g| in up2's first conv, over phase 6's per-entry 5e-3;
+# by relative L2 2.4e-3 at worst; an NVIDIA H100 80GB HBM3 at 700 W), where
+# an entry is a sum that cancels or a pre-activation sits at ReLU's zero
+PROB_EVAL_TENSOR_L2 = 1e-2
+# the harness's train() for ProbUNet: a few steps and one validation. Its
+# BN-free trunk's features outgrow the running statistics that eval-mode
+# BatchNorm in the posterior net and fcomb uses, so sigma and the logits
+# overflow and a validation's KL is NaN after 8 free f32 steps at batch 2,
+# in the JAX package as in the port (CPU,
+# tests/test_torch_prob_unet_validation.py), and after 20 bf16 steps at
+# bs12 on the card (an NVIDIA H100 80GB HBM3 at 700 W)
+PROB_HARNESS_ITERATIONS = 4
+F32_BLOCK_ITERS = 20  # launches a timed round of one block in the f32 rows
+# the gradient of a bias that BatchNorm follows is the regularizer's term
+# alone, REG_WEIGHT * b / sqrt(sum(b^2) + 1e-12), written out here from b:
+# within REG_GRAD_RTOL of the term's max|value| (the model sums the norms
+# with multi-tensor kernels, in another order)
+REG_GRAD_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -455,18 +518,20 @@ def sass_check(lib_path, build_log: str) -> dict:
     return bf16
 
 
-def chain_cost(batch, size, chans):
+def chain_cost(batch, size, chans, itemsize: int = 2):
     """(FLOPs, bytes) of a chain: 2*9*C_in*C_out a pixel and stage; the
-    chain's input and output read and written once, and its weights, bf16."""
+    chain's input and output read and written once, and its weights, all of
+    ``itemsize`` bytes (bf16 by default)."""
     pixels = batch * size * size
     flops = sum(2 * 9 * ci * co * pixels for ci, co in chans)
-    nbytes = 2 * (pixels * (chans[0][0] + chans[-1][1]) + sum(9 * ci * co for ci, co in chans))
+    nbytes = itemsize * (pixels * (chans[0][0] + chans[-1][1]) + sum(9 * ci * co for ci, co in chans))
     return flops, nbytes
 
 
-def bound(flops, nbytes):
-    """The least time in ms the card could take: (ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+def bound(flops, nbytes, peak_flops: float = PEAK_BF16_FLOPS):
+    """The least time in ms the card could take at ``peak_flops``: (ms,
+    "operations" or "bytes")."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -790,6 +855,36 @@ def phiseg_parity(dev, experiment: str = PHISEG_EXPERIMENT, modes=(True, False))
     del models
 
 
+def step_times(trainer, x, y, n: int) -> dict:
+    """The train step's times on one batch: ``ms`` (CUDA events, the min of
+    2 rounds of ``n`` steps), the host's time to issue one step onto an idle
+    device (``host_ms`` the min of ``n``, ``host_median_ms``), and the ms of
+    each phase a step (``phases_ms``: augmentation, forward+loss, backward,
+    optimizer+plateau, over ``n`` steps)."""
+    ms = min(cuda_ms(lambda: trainer.train_step(x, y), n) for _ in range(2))
+    hosts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(x, y)
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(n)]
+    for ev in events:
+        ev[0].record()
+        xa, ya = trainer.augment(x, y)
+        ev[1].record()
+        loss, _ = trainer.forward_loss(xa, ya)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update(loss)
+        ev[4].record()
+    torch.cuda.synchronize()
+    phases = [sum(ev[k].elapsed_time(ev[k + 1]) for ev in events) / n for k in range(4)]
+    return {"ms": ms, "host_ms": min(hosts), "host_median_ms": sorted(hosts)[n // 2], "phases_ms": phases}
+
+
 def phiseg_slice(conv_chain, dev, card: str, log_dir: str) -> None:
     """(b) and (c): the bf16 phiseg_7_5_12 train step, its times, and sample()."""
     from unet_zoo_tpu_torch.experiments import get_experiment
@@ -839,32 +934,12 @@ def phiseg_slice(conv_chain, dev, card: str, log_dir: str) -> None:
     log(f"[phiseg] losses: {' '.join(f'{v:.2f}' for v in losses.tolist())}")
     check(tail < losses[0].item(), f"loss did not fall: {losses[0]:.2f} -> {tail:.2f}")
 
-    step_ms = min(cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), TIME_STEPS) for _ in range(2))
-    hosts = []
-    for _ in range(TIME_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(xs[0], ys[0])
-        hosts.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(TIME_STEPS)]
-    for ev in events:
-        ev[0].record()
-        x, y = trainer.augment(xs[0], ys[0])
-        ev[1].record()
-        loss, _ = trainer.forward_loss(x, y)
-        ev[2].record()
-        trainer.backward(loss)
-        ev[3].record()
-        trainer.update(loss)
-        ev[4].record()
-    torch.cuda.synchronize()
-    phases = [sum(ev[k].elapsed_time(ev[k + 1]) for ev in events) / TIME_STEPS for k in range(4)]
-    host = min(hosts)
+    t = step_times(trainer, xs[0], ys[0], TIME_STEPS)
+    phases = t["phases_ms"]
     log(f"[time] PHiSeg train step bs{cfg.batch_size} {IMAGE}x{IMAGE} bf16 with device augmentation: "
-        f"{step_ms:.3f} ms, {cfg.batch_size / step_ms * 1e3:.1f} images/s | card: {card}")
+        f"{t['ms']:.3f} ms, {cfg.batch_size / t['ms'] * 1e3:.1f} images/s | card: {card}")
     log(f"[time] PHiSeg host time to issue one train step onto an idle device, min / median of {TIME_STEPS}: "
-        f"{host:.3f} / {sorted(hosts)[TIME_STEPS // 2]:.3f} ms | card: {card}")
+        f"{t['host_ms']:.3f} / {t['host_median_ms']:.3f} ms | card: {card}")
     log(f"[time] PHiSeg train step phases, ms/step: augmentation {phases[0]:.3f}, forward+loss {phases[1]:.3f}, "
         f"backward {phases[2]:.3f}, optimizer+plateau {phases[3]:.3f} | card: {card}")
 
@@ -947,8 +1022,12 @@ def metrics_parity(dev) -> None:
         check(err <= NCC_ATOL, f"{n_classes} classes: channels-last NCC |diff| {err}")
 
 
-def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHISEG_EXPERIMENT) -> dict:
-    """(b): the 100-sample evaluation of one image by bf16 ``experiment``."""
+def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHISEG_EXPERIMENT,
+                launches: int = 0, finite: bool = True) -> dict:
+    """(b): the 100-sample evaluation of one image by bf16 ``experiment``,
+    which must launch the conv-chain kernel ``launches`` times. Without
+    ``finite`` (a model whose eval-mode outputs overflow) the eval-mode loss
+    and NCC are logged and not held finite."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer, image_metrics
 
@@ -957,10 +1036,13 @@ def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHIS
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((1, IMAGE, IMAGE, 1), generator=gen, device=dev)
     y_all = torch.randint(0, cfg.n_classes, (EVAL_ANNOTATORS, IMAGE, IMAGE), generator=gen, device=dev)
+    torch.cuda.synchronize()
     conv_chain.launches = 0
     out = trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES)  # warm-up
     torch.cuda.synchronize()
-    check(conv_chain.launches == 0, f"the PHiSeg evaluation launched the conv-chain kernel {conv_chain.launches} times")
+    launched = conv_chain.launches
+    check(launched == launches, f"the {experiment} evaluation launched the conv-chain kernel {launched} times, "
+                                f"expected {launches}")
     walls, hosts = [], []
     for i in range(EVAL_TIMED_CALLS):
         torch.cuda.synchronize()
@@ -970,8 +1052,9 @@ def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHIS
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     ged, ncc, dice = out["ged"].item(), out["ncc"].item(), out["dice"].cpu()
-    check(math.isfinite(ged) and math.isfinite(out["loss"].item()), f"GED {ged}, loss {out['loss'].item()}")
-    check(-1.0 <= ncc <= 1.0, f"NCC {ncc} outside [-1, 1]")
+    check(math.isfinite(ged) and (math.isfinite(out["loss"].item()) or not finite),
+          f"GED {ged}, loss {out['loss'].item()}")
+    check(-1.0 <= ncc <= 1.0 or (math.isnan(ncc) and not finite), f"NCC {ncc} outside [-1, 1]")
     check(bool(((dice >= 0) & (dice <= 1)).all()), f"Dice {dice.tolist()} outside [0, 1]")
     ms, host = min(walls), min(hosts)
 
@@ -997,14 +1080,15 @@ def eval_timing(conv_chain, dev, card: str, log_dir: str, experiment: str = PHIS
                                                                    y_all[:1])),
         }
     model.train()
-    log(f"[time] PHiSeg {experiment} {EVAL_SAMPLES}-sample evaluation, each part alone (fenced, min of 3): "
+    log(f"[time] {experiment} {EVAL_SAMPLES}-sample evaluation, each part alone (fenced, min of 3): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f" | card: {card}")
-    log(f"[eval] PHiSeg {experiment} bf16, {EVAL_SAMPLES} samples + GED/NCC/Dice + loss of one image: "
-        f"GED {ged:.4f} NCC {ncc:.4f} Dice {[round(v, 4) for v in dice.tolist()]} loss {out['loss'].item():.1f}")
-    log(f"[time] PHiSeg {experiment} {EVAL_SAMPLES}-sample evaluation bf16, one {IMAGE}x{IMAGE} image: {ms:.3f} ms an image "
+    log(f"[eval] {experiment} bf16, {EVAL_SAMPLES} samples + GED/NCC/Dice + loss of one image ({launched} "
+        f"conv-chain launches): GED {ged:.4f} NCC {ncc:.4f} Dice {[round(v, 4) for v in dice.tolist()]} loss "
+        f"{out['loss'].item():.1f}")
+    log(f"[time] {experiment} {EVAL_SAMPLES}-sample evaluation bf16, one {IMAGE}x{IMAGE} image: {ms:.3f} ms an image "
         f"(min of {EVAL_TIMED_CALLS} fenced calls, median {sorted(walls)[EVAL_TIMED_CALLS // 2]:.3f}); the host "
         f"issues it in {host:.3f} ms (median {sorted(hosts)[EVAL_TIMED_CALLS // 2]:.3f}) | card: {card}")
-    return {"ms": ms, "host_ms": host, "parts_ms": parts}
+    return {"ms": ms, "host_ms": host, "parts_ms": parts, "launches": launched}
 
 
 def eval_parity(dev, log_dir: str) -> None:
@@ -1163,38 +1247,46 @@ def unet_eval_agrees(conv_chain, trainer, data, n_val: int) -> int:
     return launched
 
 
-def harness(conv_chain, dev, card: str, log_root: str) -> dict:
-    """(d): train, validate and test on in-memory synthetic LIDC."""
+# conv-chain launches of each family: (a train step, an image validated:
+# the U-Net's one forward; ProbUNet's sample, then its loss forward)
+HARNESS_LAUNCHES = {"unet": (len(BLOCKS) * STAGES_PER_BLOCK,) * 2, "phiseg": (0, 0),
+                    "prob_unet": (PROB_LAUNCHES, 2 * PROB_LAUNCHES)}
+
+
+def harness(conv_chain, dev, card: str, log_root: str, names=("unet", PHISEG_EXPERIMENT),
+            iterations: int = HARNESS_ITERATIONS, frequency: int = HARNESS_VALIDATION_FREQUENCY) -> dict:
+    """(d): train for ``iterations`` with a validation every ``frequency``,
+    validate and test on in-memory synthetic LIDC."""
     from unet_zoo_tpu_torch.data import LIDCData, synthetic
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
 
     data = LIDCData(synthetic.lidc_splits(HARNESS_SPLITS, IMAGE, seed=0), seed=0)
     n_val, n_test = HARNESS_SPLITS[1], HARNESS_SPLITS[2]
-    per_forward = len(BLOCKS) * STAGES_PER_BLOCK
-    validations = HARNESS_ITERATIONS // HARNESS_VALIDATION_FREQUENCY
+    validations = iterations // frequency
     result = {}
-    for name in ("unet", PHISEG_EXPERIMENT):
+    for name in names:
         cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16",
-                                  validation_frequency=HARNESS_VALIDATION_FREQUENCY,
-                                  logging_frequency=HARNESS_VALIDATION_FREQUENCY, num_validation_images=n_val,
+                                  validation_frequency=frequency,
+                                  logging_frequency=frequency, num_validation_images=n_val,
                                   validation_samples=HARNESS_VALIDATION_SAMPLES)
         log_dir = os.path.join(log_root, name)
         trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
         unet = cfg.model == "unet"
+        per_step, per_image = HARNESS_LAUNCHES[cfg.model]
         torch.cuda.synchronize()
         conv_chain.launches = 0
         t0 = time.perf_counter()
-        aux = trainer.train(data, iterations=HARNESS_ITERATIONS)
+        aux = trainer.train(data, iterations=iterations)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        expected = (HARNESS_ITERATIONS + validations * n_val) * per_forward if unet else 0
+        expected = iterations * per_step + validations * n_val * per_image
         check(conv_chain.launches == expected, f"{name}: train() launched {conv_chain.launches}, expected {expected}")
-        check(trainer.state.step == HARNESS_ITERATIONS and math.isfinite(aux["loss"].item()),
+        check(trainer.state.step == iterations and math.isfinite(aux["loss"].item()),
               f"{name}: step {trainer.state.step}, loss {aux['loss'].item()}")
         with open(os.path.join(log_dir, "metrics_validation.jsonl")) as f:
             records = [json.loads(line) for line in f]
-        check([r["step"] for r in records] == [HARNESS_VALIDATION_FREQUENCY * (i + 1) for i in range(validations)],
+        check([r["step"] for r in records] == [frequency * (i + 1) for i in range(validations)],
               f"{name}: validation records {records}")
         # NCC is NaN where an image's E_ss is constant (the U-Net's samples
         # all agree, and a saturated output has a constant entropy); NaN is
@@ -1204,8 +1296,8 @@ def harness(conv_chain, dev, card: str, log_root: str) -> dict:
         files += ["best_ncc"] if any(math.isfinite(r["ncc"]) for r in records) else []
         missing = [f for f in files if not os.path.exists(os.path.join(log_dir, f))]
         check(not missing, f"{name}: missing {missing}")
-        log(f"[harness] {name} bf16: train({HARNESS_ITERATIONS}) with a validation every "
-            f"{HARNESS_VALIDATION_FREQUENCY} ({n_val} images x {HARNESS_VALIDATION_SAMPLES} samples) in "
+        log(f"[harness] {name} bf16: train({iterations}) with a validation every "
+            f"{frequency} ({n_val} images x {HARNESS_VALIDATION_SAMPLES} samples) in "
             f"{train_s:.2f} s, {conv_chain.launches} conv-chain launches (expected {expected}); all of {files} "
             f"written; last validation {json.dumps(records[-1])}")
 
@@ -1221,7 +1313,7 @@ def harness(conv_chain, dev, card: str, log_root: str) -> dict:
         torch.cuda.synchronize()
         val_s = time.perf_counter() - t0
         eval_launches = conv_chain.launches
-        expected = n_val * per_forward if unet else 0
+        expected = n_val * per_image
         check(eval_launches == expected, f"{name}: validate() launched {eval_launches}, expected {expected}")
         same_state(before, trainer.state.state_dict())
         del before
@@ -1330,8 +1422,11 @@ def rev_module_parity(dev, card: str) -> dict:
     return result
 
 
-def z_eps(cfg, batch: int, gen, dev) -> list:
-    """One N(0, 1) tensor a latent level, PHiSeg's z noise shapes."""
+def z_eps(cfg, batch: int, gen, dev):
+    """The train step's z noise: ProbUNet's posterior (B, latent_dim), or
+    PHiSeg's one N(0, 1) tensor a latent level."""
+    if cfg.model == "prob_unet":
+        return torch.randn((batch, cfg.latent_dim), generator=gen, device=dev)
     return [torch.randn((batch, IMAGE >> (lvl + 2), IMAGE >> (lvl + 2), cfg.zdim), generator=gen, device=dev)
             for lvl in range(cfg.latent_levels)]
 
@@ -1348,7 +1443,8 @@ def stats_fold_once(trainer, x, y, gen, dev) -> float:
 
     cfg, model = trainer.cfg, trainer.state.model
     draws = sample_augment_params(gen, x.shape[0], (IMAGE, IMAGE), cfg.augmentation_options, dev)
-    eps = z_eps(cfg, x.shape[0], gen, dev) if cfg.model == "phiseg" else None
+    latent = cfg.model in ("phiseg", "prob_unet")
+    eps = z_eps(cfg, x.shape[0], gen, dev) if latent else None
     before = copy.deepcopy(model)
     trainer.train_step(x, y, draws, eps)
     got, want = dict(model.named_buffers()), dict(before.named_buffers())
@@ -1357,7 +1453,7 @@ def stats_fold_once(trainer, x, y, gen, dev) -> float:
     xa, ya = trainer.augment(x, y, draws)
     with torch.no_grad():
         before.train()
-        before(xa, ya, post_eps=eps) if cfg.model == "phiseg" else before(xa)
+        before(xa, ya, post_eps=eps) if latent else before(xa)
     return max(((got[n] - b).abs().max() / b.abs().max()).item() for n, b in want.items())
 
 
@@ -1414,42 +1510,65 @@ def remat_matches_plain(dev, log_dir: str) -> None:
         f"{len(grads_p)} gradients bit-identical; the U-Net has no running statistics")
 
 
-def mode_slice(conv_chain, dev, card: str, log_dir: str, name: str, batch: int, mode=None) -> dict:
-    """(c) and (e): MODE_STEPS bf16 steps of one memory-mode path from a
-    fixed seed, counted, then timed."""
-    from unet_zoo_tpu_torch.experiments import get_experiment
-    from unet_zoo_tpu_torch.training import Trainer
-
-    cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16", batch_size=batch)
-    if mode is not None:
-        cfg = dataclasses.replace(cfg, reversible_mode=mode)
-    label = f"{name} {cfg.effective_reversible_mode} bs{batch} bf16"
-    xs, ys = train_batches(MODE_STEPS, dev, batch)
-    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
-    model = trainer.state.model
+def zero_bias_gates(model, before: dict, cfg, label: str) -> dict:
+    """The first step's gradients: every parameter has one; each bias that
+    BatchNorm follows (a coupling function's ``_bias``, a conv bias beside a
+    ``bn``) an exact zero, every other a non-zero one."""
     params = dict(model.named_parameters())
-    # the biases that BatchNorm follows: the coupling functions' and the BN-followed convs'
     free = [n for n in params if n.endswith("_bias")
             or (n.endswith("conv.bias") and f"{n[:-len('conv.bias')]}bn.weight" in params)]
-    torch.cuda.synchronize()
-    conv_chain.launches = 0
-    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
-    torch.cuda.synchronize()
-    first_launches = conv_chain.launches
     missing = [n for n, p in params.items() if p.grad is None]
     check(not missing, f"{label}: no gradient in {missing}")
     nonzero = [n for n in free if bool(params[n].grad.ne(0).any())]
     check(not nonzero, f"{label}: biases that BatchNorm follows with a non-zero gradient: {nonzero}")
     dead = [n for n in params if n not in free and not bool(params[n].grad.ne(0).any())]
     check(not dead, f"{label}: all-zero gradient in {dead}")
+    log(f"[memory] {label} step 1: gradients in all {len(params)} parameters ({len(free)} BN-followed biases an "
+        f"exact zero)")
+    return {"zero_biases": len(free)}
+
+
+def mode_slice(conv_chain, dev, card: str, log_dir: str, name: str, batch=None, mode=None, launches=None,
+               gates=zero_bias_gates, time_steps: int = MODE_TIME_STEPS) -> dict:
+    """Phase 8 (c) and (e), phase 9 (c) and (f): MODE_STEPS bf16 steps of
+    one path from a fixed seed, at ``batch`` and in memory mode ``mode``
+    (the registered ones by default): the first step's gradients held by
+    ``gates(model, parameters before, cfg, label)``, no host sync in the
+    others, ``launches`` conv-chain launches a step (where given), finite
+    losses that fall, the running statistics folded once a step; then the
+    step's times (``step_times`` over ``time_steps``)."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16")
+    if batch is not None:
+        cfg = dataclasses.replace(cfg, batch_size=batch)
+    if mode is not None:
+        cfg = dataclasses.replace(cfg, reversible_mode=mode)
+    batch = cfg.batch_size
+    label = f"{name} {cfg.effective_reversible_mode} bs{batch} bf16"
+    xs, ys = train_batches(MODE_STEPS, dev, batch)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    model = trainer.state.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    first = conv_chain.launches
+    check(launches is None or first == launches, f"{label}: step 1 launched the conv-chain kernel {first} times, "
+                                                 f"expected {launches}")
+    gated = gates(model, before, cfg, label)
+    del before
     torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
     for i in range(1, MODE_STEPS):
         losses.append(trainer.train_step(xs[i], ys[i])["loss"])
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     launched = conv_chain.launches
+    check(launches is None or launched == MODE_STEPS * launches, f"{label}: {launched} launches in {MODE_STEPS} steps")
     losses = torch.stack(losses).float().cpu()
-    log(f"[memory] {label} losses: {' '.join(f'{v:.4g}' for v in losses.tolist())}")
+    log(f"[memory] {label} losses: {' '.join(f'{v:.6g}' for v in losses.tolist())}")
     check(bool(torch.isfinite(losses).all()), f"{label}: non-finite loss {losses.tolist()}")
     tail = losses[-3:].mean().item()
     check(tail < losses[0].item(), f"{label}: loss did not fall: {losses.tolist()}")
@@ -1457,25 +1576,19 @@ def mode_slice(conv_chain, dev, card: str, log_dir: str, name: str, batch: int, 
     if list(model.buffers()):
         stats_err = stats_fold_once(trainer, xs[0], ys[0], torch.Generator(device=dev).manual_seed(12), dev)
         check(stats_err <= 1e-6, f"{label}: running statistics {stats_err:.3e} off one fold a step")
-    log(f"[memory] {label}: {MODE_STEPS} steps with device augmentation, no host sync inside a step, gradients in "
-        f"all {len(params)} parameters ({len(free)} BN-followed biases an exact zero), "
-        f"{first_launches} conv-chain launches in step 1 and {launched} in all; running statistics "
+    log(f"[memory] {label}: {MODE_STEPS} steps with device augmentation, no host sync inside a step, "
+        f"{first} conv-chain launches in step 1 and {launched} in all; running statistics "
         + (f"{stats_err:.3e} from one fold a step" if stats_err is not None else "none")
         + f"; loss {losses[0]:.4g} -> mean of the last 3 {tail:.4g}")
 
-    step_ms = min(cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), MODE_TIME_STEPS) for _ in range(2))
-    hosts = []
-    for _ in range(MODE_TIME_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(xs[0], ys[0])
-        hosts.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-    log(f"[time] {label} train step with device augmentation: {step_ms:.3f} ms, {batch / step_ms * 1e3:.1f} "
-        f"images/s; the host issues a step in {min(hosts):.3f} ms (min of {MODE_TIME_STEPS}) | card: {card}")
-    result = {"first_step_launches": first_launches, "launches": launched, "ms": step_ms,
-              "images_s": batch / step_ms * 1e3, "host_ms": min(hosts), "losses": losses.tolist(),
-              "stats_err": stats_err}
+    t = step_times(trainer, xs[0], ys[0], time_steps)
+    phases = t["phases_ms"]
+    log(f"[time] {label} train step with device augmentation: {t['ms']:.3f} ms, {batch / t['ms'] * 1e3:.1f} "
+        f"images/s; the host issues a step onto an idle device in {t['host_ms']:.3f} ms (min of {time_steps}, "
+        f"median {t['host_median_ms']:.3f}); phases, ms/step: augmentation {phases[0]:.3f}, forward+loss "
+        f"{phases[1]:.3f}, backward {phases[2]:.3f}, optimizer+plateau {phases[3]:.3f} | card: {card}")
+    result = {"first_step_launches": first, "launches": launched, "images_s": batch / t["ms"] * 1e3,
+              "losses": losses.tolist(), "stats_err": stats_err, **t, **gated}
     del trainer, model
     torch.cuda.empty_cache()
     return result
@@ -1544,14 +1657,11 @@ def memory_modes(conv_chain, dev, card: str, log_dir: str) -> dict:
     t0 = time.perf_counter()
     parity = rev_module_parity(dev, card)
     phiseg_parity(dev, REV_EXPERIMENT, modes=(True,))
-    paths = {"phiseg_rev": mode_slice(conv_chain, dev, card, log_dir, REV_EXPERIMENT, 12),
-             "reversible_unet": mode_slice(conv_chain, dev, card, log_dir, "reversible_unet", 12),
-             "unet_remat": mode_slice(conv_chain, dev, card, log_dir, "unet", REMAT_BATCH, "remat")}
     per_step = 2 * len(BLOCKS) * STAGES_PER_BLOCK
-    check(paths["unet_remat"]["first_step_launches"] == per_step,
-          f"remat U-Net step: {paths['unet_remat']['first_step_launches']} launches, expected {per_step}")
-    check(paths["phiseg_rev"]["launches"] == 0 and paths["reversible_unet"]["launches"] == 0,
-          "a reversible path launched the conv-chain kernel")
+    paths = {"phiseg_rev": mode_slice(conv_chain, dev, card, log_dir, REV_EXPERIMENT, 12, launches=0),
+             "reversible_unet": mode_slice(conv_chain, dev, card, log_dir, "reversible_unet", 12, launches=0),
+             "unet_remat": mode_slice(conv_chain, dev, card, log_dir, "unet", REMAT_BATCH, "remat",
+                                      launches=per_step)}
     log(f"[memory] remat U-Net: {per_step} conv-chain launches a step (21 in the forward, 21 in the backward's "
         f"re-run); the reversible paths launch none (their coupling functions carry BatchNorm)")
     remat_matches_plain(dev, log_dir)
@@ -1571,6 +1681,245 @@ def memory_modes(conv_chain, dev, card: str, log_dir: str) -> dict:
     log(f"[memory] phase 8 took {time.perf_counter() - t0:.1f} s")
     return {"parity": parity, "paths": paths, "rev_step": rev_step, "memory": rows, "eval100_ms": evaluation["ms"],
             "eval100_host_ms": evaluation["host_ms"]}
+
+
+def prob_run(model, x, y, eps, train: bool):
+    """One ProbUNet forward with the mask, the loss and its gradients:
+    (outputs, aux, {parameter: grad})."""
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    out = model(x, y, post_eps=eps)
+    loss, aux = model.loss(out, y)
+    loss.backward()
+    return out, aux, {n: p.grad for n, p in model.named_parameters()}
+
+
+def prob_parity(conv_chain, dev) -> dict:
+    """(a): the float32 ``prob_unet`` at full width, the same weights and z
+    noise on the card (its trunk on ``conv3x3_f32_fma``) and on the CPU (the
+    plain chain), TF32 off: eval mode, every output and gradient (the
+    gradient gate per tensor), then train mode, the outputs, loss terms,
+    the whole gradient and the running statistics, at phase 6's gates."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.models.registry import get_model
+
+    cfg = get_experiment(PROB_EXPERIMENT)
+    models = {d: get_model(cfg.model, **cfg.model_kwargs(), device=d, generator=torch.Generator().manual_seed(5))
+              for d in ("cpu", dev)}
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((PHISEG_PARITY_BATCH, IMAGE, IMAGE, 1), generator=gen)
+    y = (torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 9, 1, 4) > 0)[:, 0].long()
+    eps = torch.randn((PHISEG_PARITY_BATCH, cfg.latent_dim), generator=gen)
+    result = {}
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        models[dev].load_state_dict(models["cpu"].state_dict())  # the same running statistics
+        runs = {"cpu": prob_run(models["cpu"], x, y, eps, train)}
+        torch.cuda.synchronize()
+        conv_chain.launches = 0
+        runs[dev] = prob_run(models[dev], x.to(dev), y.to(dev), eps.to(dev), train)
+        torch.cuda.synchronize()
+        launched = conv_chain.launches
+        check(launched == PROB_LAUNCHES, f"f32 {mode} forward on the card: {launched} conv-chain launches")
+        (out_c, aux_c, g_c), (out_g, aux_g, g_g) = runs["cpu"], runs[dev]
+        of_max = PHISEG_TRAIN_OF_MAX if train else PHISEG_EVAL_OF_MAX
+        out_err = 0.0
+        for key, ref in out_c.items():
+            err = (out_g[key].detach().cpu() - ref.detach()).abs().max().item() / ref.detach().abs().max().item()
+            out_err = max(out_err, err)
+            check(err <= of_max, f"prob_unet f32 {mode} {key}: {err:.3e} of max|ref| > {of_max}")
+        loss_err = max(abs(aux_g[k].item() - aux_c[k].item()) / abs(aux_c[k].item()) for k in ("loss", "kl", "recon"))
+        check(loss_err <= PHISEG_LOSS_RTOL, f"prob_unet f32 {mode} loss terms: rel diff {loss_err:.3e}")
+        zero = [n for n in ("last_conv.conv.weight", "last_conv.conv.bias") if g_c[n].any() or g_g[n].any()]
+        check(not zero, f"prob_unet f32 {mode}: a non-zero last_conv gradient in {zero}")
+        per_tensor, worst = max((((g_g[n].cpu() - g_c[n]).abs().max() / g_c[n].abs().max()).item(), n)
+                                for n in g_c if g_c[n].any())
+        tensor_l2, worst_l2 = max((((g_g[n].cpu() - g_c[n]).norm() / g_c[n].norm()).item(), n)
+                                  for n in g_c if g_c[n].any())
+        flat = {d: torch.cat([g[n].detach().cpu().flatten() for n in g_c]) for d, g in (("cpu", g_c), (dev, g_g))}
+        l2 = ((flat[dev] - flat["cpu"]).norm() / flat["cpu"].norm()).item()
+        check(l2 <= PHISEG_TRAIN_GRAD_L2, f"prob_unet f32 {mode} gradient: rel L2 {l2:.3e}")
+        tol = f"tol L2 {PHISEG_TRAIN_GRAD_L2}"
+        if not train:
+            check(tensor_l2 <= PROB_EVAL_TENSOR_L2, f"prob_unet f32 eval gradient {worst_l2}: rel L2 {tensor_l2:.3e}")
+            tol += f", each tensor's {PROB_EVAL_TENSOR_L2}"
+        else:
+            gpu_buffers = dict(models[dev].named_buffers())
+            stats_err = max(((gpu_buffers[n].cpu() - b).abs().max() / b.abs().max()).item()
+                            for n, b in models["cpu"].named_buffers())
+            check(stats_err <= PHISEG_STATS_RTOL, f"prob_unet running statistics: rel diff {stats_err:.3e}")
+            tol += f"; running statistics rel {stats_err:.3e}, tol {PHISEG_STATS_RTOL}"
+        log(f"[prob_unet] f32 {mode} mode, card ({launched} launches of conv3x3_f32_fma) vs CPU, batch "
+            f"{PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs {out_err:.3e} of max|ref| (tol {of_max}), "
+            f"loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), last_conv's gradient an exact zero on "
+            f"both, whole gradient rel L2 {l2:.3e} ({tol}); worst tensor by max {worst} {per_tensor:.3e} of its "
+            f"max|g|, by L2 {worst_l2} {tensor_l2:.3e}")
+        result[mode] = {"outputs_of_max": out_err, "loss_rel": loss_err, "grad_rel_l2": l2,
+                        "worst_grad_of_max": per_tensor, "worst_tensor_rel_l2": tensor_l2}
+    del models
+    return result
+
+
+def f32_block_row(conv_chain, x, ks, bs, block: str, card: str) -> dict:
+    """Times of one float32 chain at its shape: the kernel, the plain
+    version and cuDNN conv+bias+ReLU (TF32 off), CUDA events, the min of 2
+    rounds of F32_BLOCK_ITERS, beside its bound at the f32 CUDA-core peak."""
+    batch, size, _, ci = x.shape
+    chans = [(k.shape[1], k.shape[0]) for k in ks]
+    packed = [conv_chain.pack_kernel(k, x.dtype) for k in ks]
+    k_ms = min(cuda_ms(lambda: conv_chain.fused_conv_chain(x, ks, bs, packed=packed), F32_BLOCK_ITERS)
+               for _ in range(2))
+    p_ms = min(cuda_ms(lambda: conv_chain.fused_conv_chain_reference(x, ks, bs), F32_BLOCK_ITERS) for _ in range(2))
+    c_ms = min(cuda_ms(lambda: cudnn_chain(x, ks, bs), F32_BLOCK_ITERS) for _ in range(2))
+    b_ms, b_by = bound(*chain_cost(batch, size, chans, itemsize=4), PEAK_F32_FLOPS)
+    log(f"[time] f32 {block} ({batch}, {size}, {size}, {ci})->{chans[-1][1]} x3: conv3x3_f32_fma {k_ms:.3f} ms "
+        f"({b_ms / k_ms:.1%} of its {b_ms:.3f} ms bound by {b_by} at 67 TFLOP/s f32), plain {p_ms:.3f} ms, cuDNN "
+        f"f32 conv+bias+ReLU (TF32 off) {c_ms:.3f} ms | card: {card}")
+    return {"block": block, "batch": batch, "ms": k_ms, "plain_ms": p_ms, "library_ms": c_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def prob_blocks(conv_chain, dev, card: str) -> dict:
+    """(b): the 13 trunk block shapes at each batch the ProbUNet path gives
+    the kernel (PROB_CHECK_BATCHES: the launch plan's items, and at 128x128
+    its tile height, depend on the batch), kernel against plain in float32
+    and bf16 (each bf16 stage's plan logged), and the float32 kernel's time
+    per block at batch 12 at those shapes and at the U-Net's 7."""
+    gen = torch.Generator().manual_seed(14)
+    rows = {"prob_unet": [], "unet": []}
+    errs = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            for block, size, ci, co in PROB_BLOCKS:
+                chans = [(ci, co)] + [(co, co)] * (STAGES_PER_BLOCK - 1)
+                ks, bs = chain_weights(chans, gen, dev)
+                for batch in PROB_CHECK_BATCHES:
+                    x = torch.randn((batch, size, size, ci), generator=gen).to(dev, dtype)
+                    errs.append(compare(conv_chain, x, ks, bs, f"{name} prob_unet {block} ({batch}, {size}, {size}, "
+                                                               f"{ci})->{co}"))
+                    if dtype == torch.bfloat16:
+                        for c_in, c_out in chans:
+                            p = conv_chain.launch_plan((batch, size, size, c_in), c_out)
+                            log(f"[plan]   {block} bs{batch} {c_in}->{c_out} at {size}x{size}: chunk {p.chunk}, "
+                                f"{p.block_n} channels a block, {p.tile_h}x16 tile, {p.items} items, {p.loader} "
+                                f"loader, weights {'resident' if p.resident else 'ring'}")
+                    if dtype == torch.float32 and batch == PROB_BATCH:
+                        rows["prob_unet"].append(f32_block_row(conv_chain, x, ks, bs, f"prob_unet {block}", card))
+                    del x
+        for block, size, ci, co in BLOCKS:
+            chans = [(ci, co)] + [(co, co)] * (STAGES_PER_BLOCK - 1)
+            x = torch.randn((PROB_BATCH, size, size, ci), generator=gen).to(dev)
+            ks, bs = chain_weights(chans, gen, dev)
+            rows["unet"].append(f32_block_row(conv_chain, x, ks, bs, f"unet {block}", card))
+            del x
+    for net, rs in rows.items():
+        k, c, b = (sum(r[key] for r in rs) for key in ("ms", "library_ms", "bound_ms"))
+        log(f"[time] f32 {net} trunk, {len(rs)} blocks at bs{PROB_BATCH}: conv3x3_f32_fma {k:.3f} ms, cuDNN f32 "
+            f"{c:.3f} ms, bound {b:.3f} ms ({b / k:.1%}) | card: {card}")
+    log(f"[kernel] prob_unet trunk: {len(errs)} block checks ({len(PROB_BLOCKS)} blocks x batches "
+        f"{PROB_CHECK_BATCHES} x f32, bf16) all within tolerance")
+    return {"rows": rows, "max_abs_err": max(errs)}
+
+
+def prob_grad_gates(model, before: dict, cfg, label: str) -> dict:
+    """The first step's gradients and update: every parameter has a
+    gradient; each bias that BatchNorm follows (a conv bias beside a ``bn``,
+    a coupling function's ``_bias``) has exactly the regularizer's term (the
+    encoders' and fcomb's) or an exact zero (the trunk's); ``last_conv``'s
+    gradient is an exact zero and its change is coupled-L2 Adam's first
+    update of the decay alone, -lr * g / (|g| + 1e-8) with g = wd * p; every
+    other gradient is non-zero."""
+    from unet_zoo_tpu_torch.models.prob_unet import NORM_EPS, REG_WEIGHT
+
+    lr, wd = cfg.learning_rate, cfg.weight_decay
+    params = dict(model.named_parameters())
+    missing = [n for n, p in params.items() if p.grad is None]
+    check(not missing, f"{label}: no gradient in {missing}")
+    reg = {n for n, _ in model.regularized_parameters()}
+    cut = [n for n in params if re.search(r"block\d+_[fg]_bias$", n)
+           or (n.endswith("conv.bias") and f"{n[:-len('conv.bias')]}bn.weight" in params)]
+    term_err, zeros = 0.0, 0
+    for n in cut:
+        if n in reg:
+            b = before[n]
+            want = REG_WEIGHT * b / torch.sqrt(b.square().sum() + NORM_EPS)
+            err = ((params[n].grad - want).abs().max() / want.abs().max()).item()
+            term_err = max(term_err, err)
+            check(err <= REG_GRAD_RTOL, f"{label}: {n}'s gradient {err:.3e} off the regularizer's term")
+        else:
+            check(not params[n].grad.any(), f"{label}: a non-zero gradient in {n}, which BatchNorm follows")
+            zeros += 1
+    adam_err = 0.0
+    for n in ("last_conv.conv.weight", "last_conv.conv.bias"):
+        check(not params[n].grad.any(), f"{label}: a non-zero gradient in {n}")
+        g = wd * before[n]
+        adam_err = max(adam_err, (params[n].detach() - before[n] + lr * g / (g.abs() + 1e-8)).abs().max().item())
+    check(adam_err <= ADAM_OF_LR * lr, f"{label}: last_conv moved {adam_err:.3e} off Adam's decay-only update")
+    dead = [n for n in params if n not in cut and not n.startswith("last_conv.") and not params[n].grad.any()]
+    check(not dead, f"{label}: all-zero gradient in {dead}")
+    log(f"[prob_unet] {label} step 1: gradients in all {len(params)} parameters; {len(cut) - zeros} BN-followed "
+        f"biases of the encoders and fcomb carry the regularizer's term alone ({term_err:.3e} of its max off, tol "
+        f"{REG_GRAD_RTOL}), {zeros} of the trunk an exact zero; last_conv's gradient an exact zero and its change "
+        f"{adam_err:.3e} off Adam's decay-only update (tol {ADAM_OF_LR * lr:.1e})")
+    return {"reg_term_err": term_err, "last_conv_adam_err": adam_err, "regularized_biases": len(cut) - zeros}
+
+
+def prob_f32_step(conv_chain, dev, card: str, log_dir: str) -> dict:
+    """(d): the registered float32 ``prob_unet`` step at batch 12: 39
+    launches of ``conv3x3_f32_fma``, and its ms beside the same step with
+    every trunk block on cuDNN f32 (the chain's plain version in place of
+    the kernel's wrapper, ``plain_chain``; TF32 off), in turns."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = get_experiment(PROB_EXPERIMENT)
+    check(cfg.dtype == "float32", f"{PROB_EXPERIMENT} is registered in {cfg.dtype}")
+    xs, ys = train_batches(1, dev, cfg.batch_size)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    check(trainer.chain_route == "conv3x3_f32_fma", f"f32 chains route to {trainer.chain_route}")
+    trainer.train_step(xs[0], ys[0])
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    trainer.train_step(xs[0], ys[0])
+    torch.cuda.synchronize()
+    launched = conv_chain.launches
+    check(launched == PROB_LAUNCHES, f"f32 {PROB_EXPERIMENT} step: {launched} launches of conv3x3_f32_fma")
+    ms = {"kernel": math.inf, "cudnn": math.inf}
+    for route in ("kernel", "cudnn", "cudnn", "kernel"):
+        with plain_chain() if route == "cudnn" else contextlib.nullcontext():
+            ms[route] = min(ms[route], cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), MODE_TIME_STEPS))
+    check(conv_chain.launches == launched + 2 * (MODE_TIME_STEPS + 1) * PROB_LAUNCHES,
+          f"f32 timing: {conv_chain.launches - launched} launches, expected the kernel's rounds only")
+    log(f"[time] {PROB_EXPERIMENT} f32 train step bs{cfg.batch_size} as registered ({launched} launches of "
+        f"conv3x3_f32_fma a step): {ms['kernel']:.3f} ms; the same step with the trunk on cuDNN f32, TF32 off: "
+        f"{ms['cudnn']:.3f} ms (min of 2 rounds of {MODE_TIME_STEPS} each, in turns) | card: {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launched, "ms": ms["kernel"], "cudnn_ms": ms["cudnn"]}
+
+
+def prob_unet_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 9: the Probabilistic U-Net, plain and reversible."""
+    t0 = time.perf_counter()
+    parity = prob_parity(conv_chain, dev)
+    blocks = prob_blocks(conv_chain, dev, card)
+    plain = mode_slice(conv_chain, dev, card, log_root, PROB_EXPERIMENT, launches=PROB_LAUNCHES,
+                       gates=prob_grad_gates, time_steps=TIME_STEPS)
+    f32 = prob_f32_step(conv_chain, dev, card, log_root)
+    evaluation = eval_timing(conv_chain, dev, card, log_root, PROB_EXPERIMENT, launches=2 * PROB_LAUNCHES)
+    rev = mode_slice(conv_chain, dev, card, log_root, PROB_REV_EXPERIMENT, launches=0, gates=prob_grad_gates)
+    # untrained, the reversible trunk's he_normal coupling blocks grow their
+    # input ~1e10-fold on BatchNorm's initial running statistics (eval
+    # mode), so sigma overflows and the eval-mode loss is NaN, as the JAX
+    # model's is (its features reach 1.3e10 at init, float32 on a CPU), and
+    # the saturated samples make NCC's entropy map constant, so NaN
+    rev_eval = eval_timing(conv_chain, dev, card, log_root, PROB_REV_EXPERIMENT, finite=False)
+    harnessed = harness(conv_chain, dev, card, log_root, names=(PROB_EXPERIMENT,), iterations=PROB_HARNESS_ITERATIONS,
+                        frequency=PROB_HARNESS_ITERATIONS)[PROB_EXPERIMENT]
+    log(f"[prob_unet] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return {"parity": parity, "blocks": blocks, "plain": plain, "f32": f32, "eval": evaluation, "rev": rev,
+            "rev_eval": rev_eval, "harness": harnessed}
 
 
 def main() -> int:
@@ -1717,6 +2066,10 @@ def main() -> int:
 
         # 8. the remat and reversible memory modes
         modes = memory_modes(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
+
+        # 9. the Probabilistic U-Net
+        prob = prob_unet_phase(conv_chain, dev, card, log_root)
 
     main = blocks[BATCH]
     log(json.dumps({"kernels": [{
@@ -1756,6 +2109,23 @@ def main() -> int:
                                             "saving_vs_plain")} for r in modes["memory"]],
         "phiseg_rev_eval100_ms": modes["eval100_ms"],
         "phiseg_rev_eval100_host_ms": modes["eval100_host_ms"],
+        "prob_unet_train_launches": prob["plain"]["first_step_launches"],
+        "prob_unet_step_ms": prob["plain"]["ms"],
+        "prob_unet_host_ms": prob["plain"]["host_ms"],
+        "prob_unet_step_phases_ms": prob["plain"]["phases_ms"],
+        "prob_unet_f32_launches": prob["f32"]["launches"],
+        "prob_unet_f32_step_ms": prob["f32"]["ms"],
+        "prob_unet_f32_step_cudnn_ms": prob["f32"]["cudnn_ms"],
+        "prob_unet_eval100_ms": prob["eval"]["ms"],
+        "prob_unet_eval100_host_ms": prob["eval"]["host_ms"],
+        "prob_unet_eval100_launches": prob["eval"]["launches"],
+        "prob_unet_rev_step_ms": prob["rev"]["ms"],
+        "prob_unet_rev_host_ms": prob["rev"]["host_ms"],
+        "prob_unet_rev_eval100_ms": prob["rev_eval"]["ms"],
+        "prob_unet_parity": prob["parity"],
+        "prob_unet_block_max_abs_err": prob["blocks"]["max_abs_err"],
+        "prob_unet_validation_eval_s_per_image": prob["harness"]["validation_eval_s_per_image"],
+        "f32_blocks_bs12": prob["blocks"]["rows"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ from unet_zoo_tpu.training import Trainer as JaxTrainer
 from unet_zoo_tpu_torch.bridge import load_jax_params, state_dict_from_jax
 from unet_zoo_tpu_torch.experiments import ExperimentConfig, get_experiment
 from unet_zoo_tpu_torch.models.phiseg import PHiSeg
+from unet_zoo_tpu_torch.models.prob_unet import ProbUNet
 from unet_zoo_tpu_torch.models.registry import get_model
 from unet_zoo_tpu_torch.models.unet import UNet
 from unet_zoo_tpu_torch.ops import ReversibleSequence
@@ -244,7 +245,8 @@ def test_reversible_experiments_match_jax(name):
     assert got.model_kwargs()["reversible_mode"] == want.model_kwargs()["reversible_mode"] == "reversible"
 
 
-@pytest.mark.parametrize("name,cls", [("reversible_unet", UNet), ("phiseg_rev_7_5_12", PHiSeg)])
+@pytest.mark.parametrize("name,cls", [("reversible_unet", UNet), ("phiseg_rev_7_5_12", PHiSeg),
+                                      ("prob_unet_reversible", ProbUNet)])
 def test_reversible_experiments_build(name, cls):
     cfg = get_experiment(name)
     model = get_model(cfg.model, **cfg.model_kwargs(), device="cpu", generator=torch.Generator().manual_seed(0))
@@ -252,16 +254,16 @@ def test_reversible_experiments_build(name, cls):
     assert any(isinstance(m, ReversibleSequence) for m in model.modules())
 
 
-@pytest.mark.parametrize("name", ["prob_unet_reversible", "phiseg_uzh_rev_7_5_192", "phiseg_brats"])
+@pytest.mark.parametrize("name", ["phiseg_uzh_rev_7_5_256", "phiseg_uzh_rev_7_5_192", "phiseg_brats"])
 def test_unported_reversible_experiments_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         get_experiment(name)
 
 
-@pytest.mark.parametrize("model", ["unet", "phiseg"])
+@pytest.mark.parametrize("model", ["unet", "phiseg", "prob_unet"])
 @pytest.mark.parametrize("mode", ["remat", "reversible"])
 def test_config_accepts_the_memory_modes(model, mode):
-    base = TINY if model == "unet" else TINY_PHISEG
+    base = {"unet": TINY, "phiseg": TINY_PHISEG, "prob_unet": {**TINY, "model": "prob_unet"}}[model]
     cfg = ExperimentConfig(**base, reversible_mode=mode)
     cfg.validate()
     assert cfg.model_kwargs()["reversible_mode"] == mode

@@ -367,12 +367,12 @@ def test_registry_names_every_jax_experiment():
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"model": "prob_unet"}, NotImplementedError),
+    ({"model": "phiseg3d"}, NotImplementedError),
     ({"model": "resnet"}, ValueError),
     ({"dtype": "float16"}, ValueError),
     ({"image_size": (32, 32, 32)}, NotImplementedError),
     ({"image_size": (4, 32)}, ValueError),
-    ({"use_reversible": True, "model": "prob_unet"}, NotImplementedError),
+    ({"use_reversible": True, "model": "phiseg3d"}, NotImplementedError),
     ({"reversible_mode": "remat", "image_size": (32, 32, 32)}, NotImplementedError),
     ({"model": "phiseg", "latent_levels": 5}, ValueError),
     ({"augment_on": "host"}, NotImplementedError),

@@ -142,7 +142,7 @@ def test_bridge_checks_keys_and_shapes():
 def test_registry_and_unported_modes():
     assert isinstance(get_model("unet", num_classes=2, num_filters=FILTERS, device="cpu"), UNet)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("prob_unet", num_classes=2)
+        get_model("phiseg3d", num_classes=2)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("resnet")
     assert isinstance(UNet(2, FILTERS, reversible_mode="reversible").down0.rev, ops.ReversibleSequence)

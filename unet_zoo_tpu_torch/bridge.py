@@ -5,7 +5,8 @@ and, for a model with BatchNorm, ``jax.device_get(variables["batch_stats"])``
 return for a model of ``unet_zoo_tpu``. A leaf at ``a/b/.../kernel`` becomes
 ``a.b....weight``, ``.../bias`` becomes ``....bias`` and a BatchNorm's
 ``.../scale`` becomes ``....weight``; in ``batch_stats``, ``.../mean`` and
-``.../var`` become ``....running_mean`` and ``....running_var``. A
+``.../var`` become ``....running_mean`` and ``....running_var``. ProbUNet's
+Gaussian heads keep their names (``.../head_kernel``, ``.../head_bias``). A
 reversible sequence's flat leaves keep their names: ``.../rev/block0_f_kernel``,
 ``_bias``, ``_scale`` and ``_shift`` become ``....rev.block0_f_kernel`` and so
 on, and its ``block0_f_mean``/``_var`` statistics the buffers of those names.
@@ -33,7 +34,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return flat
 
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "head_kernel": "head_kernel",
+                 "head_bias": "head_bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 # a reversible sequence's leaves, which keep their names
 _REV_PARAM = re.compile(r"block\d+_[fg]_(kernel|bias|scale|shift)")

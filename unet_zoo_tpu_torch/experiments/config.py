@@ -1,11 +1,11 @@
 """Experiment and system configuration, a jax-free copy of
 ``unet_zoo_tpu.experiments.config``.
 
-``ExperimentConfig`` carries the fields that the U-Net and PHiSeg 2D train
-step, the evaluation and the train loop read, with the JAX package's names
-and defaults; the other families' fields come back with their ports.
-``validate`` raises on what the JAX package rejects and on what the port
-does not run yet (ProbUNet, 3D, host augmentation). ``SystemConfig`` is the JAX package's whole, so that one
+``ExperimentConfig`` carries the fields that the U-Net, ProbUNet and PHiSeg
+2D train step, the evaluation and the train loop read, with the JAX
+package's names and defaults; the other families' fields come back with
+their ports. ``validate`` raises on what the JAX package rejects and on what
+the port does not run yet (3D, host augmentation). ``SystemConfig`` is the JAX package's whole, so that one
 ``config.json`` loads in both packages. ``load_experiment`` takes a registry
 name or a ``.py`` file that defines ``config``.
 """
@@ -52,7 +52,9 @@ class ExperimentConfig:
     # architecture
     filter_channels: Tuple[int, ...] = (32, 64, 128, 192, 192, 192, 192)
     latent_levels: int = 5
+    latent_dim: int = 6  # prob_unet only
     zdim: int = 2  # phiseg latent channels a level
+    no_convs_fcomb: int = 4  # prob_unet only
     n_classes: int = 2
     input_channels: int = 1
     image_size: Tuple[int, ...] = (128, 128)  # spatial dims
@@ -111,12 +113,14 @@ class ExperimentConfig:
                 exponential_weighting=self.exponential_weighting,
                 kl_parity=self.kl_parity,
             )
+        elif self.model == "prob_unet":
+            kw.update(latent_dim=self.latent_dim, no_convs_fcomb=self.no_convs_fcomb, kl_parity=self.kl_parity)
         return kw
 
     def validate(self) -> None:
         if self.model not in ("unet", "prob_unet", "phiseg", "phiseg3d"):
             raise ValueError(f"unknown model '{self.model}'")
-        if self.model not in ("unet", "phiseg"):
+        if self.model not in ("unet", "prob_unet", "phiseg"):
             raise NotImplementedError(f"model '{self.model}' is not ported to PyTorch yet")
         if self.effective_reversible_mode not in MEMORY_MODES:
             raise ValueError(f"reversible_mode must be one of {MEMORY_MODES}, got '{self.effective_reversible_mode}'")

@@ -1,9 +1,10 @@
 """Built-in experiments, a jax-free copy of ``unet_zoo_tpu.experiments.registry``.
 
-The ``unet`` and ``reversible_unet`` entries and the 2D LIDC PHiSeg entries,
-plain and reversible, are ported (each with the JAX entry's values of the
-fields the port carries); the JAX package's other names (UZH prostate,
-ProbUNet, BraTS) raise ``NotImplementedError``.
+The ``unet`` and ``reversible_unet`` entries, ``prob_unet`` and
+``prob_unet_reversible``, and the 2D LIDC PHiSeg entries, plain and
+reversible, are ported (each with the JAX entry's values of the fields the
+port carries); the JAX package's other names (UZH prostate, BraTS) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,6 +42,26 @@ def _reversible_unet() -> ExperimentConfig:
     return dataclasses.replace(_unet(), experiment_name="ReversibleUnet", use_reversible=True)
 
 
+def _prob_unet() -> ExperimentConfig:
+    """reference models/experiments/prob_unet.py"""
+    return ExperimentConfig(
+        experiment_name="ProbabilisticUnet",
+        model="prob_unet",
+        filter_channels=(32, 64, 128, 192, 192, 192, 192),
+        latent_levels=1,
+        latent_dim=6,
+        no_convs_fcomb=3,
+        n_classes=2,
+        batch_size=12,
+        image_size=(128, 128),
+        augmentation_options=_LIDC_AUG,
+    )
+
+
+def _prob_unet_reversible() -> ExperimentConfig:
+    return dataclasses.replace(_prob_unet(), experiment_name="ProbabilisticUnetRev", use_reversible=True)
+
+
 def _phiseg_lidc(batch_size: int, reversible: bool = False) -> ExperimentConfig:
     """reference models/experiments/phiseg_[rev_]7_5_<bs>.py"""
     return ExperimentConfig(
@@ -76,6 +97,8 @@ def _phiseg_big_reversible() -> ExperimentConfig:
 EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
     "unet": _unet,
     "reversible_unet": _reversible_unet,
+    "prob_unet": _prob_unet,
+    "prob_unet_reversible": _prob_unet_reversible,
     **{f"phiseg_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b))(bs) for bs in (12, 24, 36, 48, 56)},
     **{f"phiseg_rev_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b, True))(bs) for bs in (12, 24, 36, 48, 56, 60, 64)},
     "phiseg_big": _phiseg_big,
@@ -86,7 +109,7 @@ EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
 NOT_PORTED = (
     *(f"phiseg_uzh_7_5_{res}" for res in (192, 256, 384, 512)),
     *(f"phiseg_uzh_rev_7_5_{res}" for res in (192, 224, 256, 384, 512)),
-    "prob_unet", "prob_unet_reversible", "phiseg_brats",
+    "phiseg_brats",
 )
 
 

@@ -7,12 +7,13 @@ from typing import Any, Dict
 import torch
 
 from unet_zoo_tpu_torch.models.phiseg import PHiSeg
+from unet_zoo_tpu_torch.models.prob_unet import ProbUNet
 from unet_zoo_tpu_torch.models.unet import UNet
 
-MODELS: Dict[str, Any] = {"unet": UNet, "phiseg": PHiSeg}
+MODELS: Dict[str, Any] = {"unet": UNet, "prob_unet": ProbUNet, "phiseg": PHiSeg}
 
 # in the JAX package's registry, not ported yet
-NOT_PORTED = ("prob_unet", "phiseg3d")
+NOT_PORTED = ("phiseg3d",)
 
 
 def resolve_device(device=None) -> torch.device:

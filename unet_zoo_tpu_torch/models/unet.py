@@ -28,14 +28,16 @@ class UNet(nn.Module):
     Up path: bilinear resize (``align_corners=False``) to the skip's exact
     spatial shape, concat ``(upsampled, skip)``, then a 3-conv block.
     ``in_channels`` is explicit here (the JAX model infers it at init).
-    ``train()`` and ``eval()`` stand for the JAX model's ``train`` flag: they
+    Without ``apply_last_layer`` there is no 1x1 ``last`` conv and the
+    model returns the up0 features (``num_filters[0]`` channels, in the
+    compute dtype), as ProbUNet's trunk. ``train()`` and ``eval()`` stand for the JAX model's ``train`` flag: they
     select BatchNorm's batch or running statistics, which only the
     reversible blocks have.
     """
 
     def __init__(self, num_classes: int, num_filters: Sequence[int] = (32, 64, 128, 192),
-                 in_channels: int = 1, reversible_mode: str = "plain", dtype: Optional[torch.dtype] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 in_channels: int = 1, apply_last_layer: bool = True, reversible_mode: str = "plain",
+                 dtype: Optional[torch.dtype] = None, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_filters = tuple(num_filters)
         kw = dict(reversible_mode=reversible_mode, dtype=dtype, device=device, generator=generator)
@@ -48,8 +50,8 @@ class UNet(nn.Module):
             f = self.num_filters[i]
             self.add_module(f"up{i}", DownBlock(c + f, f, pool=False, **kw))
             c = f
-        self.last = ops.Conv(c, num_classes, kernel_size=1, init_scheme="torch_default",
-                             device=device, generator=generator)
+        self.last = (ops.Conv(c, num_classes, kernel_size=1, init_scheme="torch_default", device=device,
+                              generator=generator) if apply_last_layer else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n = len(self.num_filters)
@@ -61,7 +63,7 @@ class UNet(nn.Module):
         for i in range(n - 2, -1, -1):
             x = ops.resize_linear(x, skips[i].shape[1:3], align_corners=False)
             x = getattr(self, f"up{i}")((x, skips[i]))
-        return self.last(x)
+        return x if self.last is None else self.last(x)
 
     # the harness contract of the JAX model: loss, sample, accumulate_output
 

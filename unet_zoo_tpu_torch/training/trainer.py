@@ -1,11 +1,13 @@
 """The training harness, the twin of ``unet_zoo_tpu.training.trainer.Trainer``
-(the U-Net and PHiSeg 2D families, 2D device augmentation, one card).
+(the U-Net, ProbUNet and PHiSeg 2D families, 2D device augmentation, one
+card).
 
 The train step, all on the device and with no host sync: augmentation
 (draws from the state's generator) -> the model in train mode (the U-Net's
-blocks through the conv-chain kernel; PHiSeg with the mask, its z noise
-drawn from the same generator after the augmentation's, its BatchNorm
-running statistics updated in the forward) -> the family's loss ->
+and ProbUNet's trunk blocks through the conv-chain kernel; ProbUNet and
+PHiSeg with the mask, their z noise drawn from the same generator after
+the augmentation's, their BatchNorm running statistics updated in the
+forward) -> the family's loss ->
 backward -> the plateau scheduler on this step's loss -> coupled-L2 Adam
 at the scheduler's learning rate, in the JAX step's order.
 
@@ -148,14 +150,15 @@ class Trainer:
                                                opts, self.device)
         return warp_batch_2d(x, y, aug_params, opts)
 
-    def forward_loss(self, x: torch.Tensor, y: torch.Tensor, z_eps: Optional[List[torch.Tensor]] = None
+    def forward_loss(self, x: torch.Tensor, y: torch.Tensor, z_eps=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The model in train mode (an evaluation may have left it in eval
-        mode) and its loss. For PHiSeg ``z_eps`` replaces the posterior's z
-        noise, one tensor a latent level."""
+        mode) and its loss. ``z_eps`` replaces the posterior's z noise: for
+        PHiSeg one tensor a latent level, for ProbUNet one (B, latent_dim)
+        tensor."""
         model = self.state.model
         model.train()
-        if self.cfg.model == "phiseg":
+        if self.cfg.model in ("phiseg", "prob_unet"):
             return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
         return model.loss(model(x), y)
 
@@ -174,9 +177,9 @@ class Trainer:
         state.step += 1
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor, aug_params: Optional[AugmentParams] = None,
-                   z_eps: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                   z_eps=None) -> Dict[str, torch.Tensor]:
         """One step on images x (B, H, W, C) float and labels y (B, H, W)
-        int. ``aug_params`` and ``z_eps`` (PHiSeg) replace the step's own
+        int. ``aug_params`` and ``z_eps`` (ProbUNet, PHiSeg) replace the step's own
         draws (tests inject the JAX package's). Returns the loss's aux dict
         as device tensors."""
         x, y = self.augment(x, y, aug_params)
@@ -243,34 +246,40 @@ class Trainer:
         return list(cfg.annotator_range) if cfg.annotator_range is not None else list(range(cfg.num_labels_per_subject))
 
     def eval_image(self, x: torch.Tensor, y_all: torch.Tensor, y_chosen: torch.Tensor, n_samples: int,
-                   n_loss: int = 1, salt: int = 0, index: int = 0, eps: Optional[List[torch.Tensor]] = None,
-                   loss_eps: Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]] = None) -> Dict[str, torch.Tensor]:
+                   n_loss: int = 1, salt: int = 0, index: int = 0, eps=None, loss_eps=None) -> Dict[str, torch.Tensor]:
         """One image's evaluation, the twin of the JAX ``_eval_image_fn``:
         x (1, *S, C) float, y_all (A, *S) and y_chosen (1, *S) int, on the
         device. ``model.sample(x, n_samples)`` -> ``image_metrics``, and the
-        eval-mode loss against ``y_chosen``: for PHiSeg ``model(x, y)`` in
-        eval mode (the prior's z decoded, BatchNorm on running statistics)
-        on the batch of ``n_loss`` repeats, each with its own z; for the
-        U-Net, which is deterministic in eval mode, the loss of the
-        sample's logits (the JAX package runs the forward once more). The z
-        noise comes from ``eval_generator(salt, index)``, or ``eps`` (for
-        ``sample``) and ``loss_eps`` (posterior, prior) replace it. Makes no
-        host sync; returns device tensors ``ged``, ``ncc``, ``dice``,
-        ``loss``, ``kl``, ``recon``, ``mean_pred`` and ``sample0``."""
+        eval-mode loss against ``y_chosen``: for ProbUNet and PHiSeg
+        ``model(x, y)`` in eval mode (BatchNorm on running statistics;
+        ProbUNet decodes the posterior's z, PHiSeg the prior's) on the batch
+        of ``n_loss`` repeats, each with its own z; for the U-Net, which is
+        deterministic in eval mode, the loss of the sample's logits (the JAX
+        package runs the forward once more). The z noise comes from
+        ``eval_generator(salt, index)``, or ``eps`` (for ``sample``) and
+        ``loss_eps`` (ProbUNet: the posterior's (n_loss, latent_dim);
+        PHiSeg: (posterior, prior) lists) replace it. Makes no host sync;
+        returns device tensors ``ged``, ``ncc``, ``dice``, ``loss``, ``kl``,
+        ``recon``, ``mean_pred`` and ``sample0``."""
         model = self.state.model
-        phiseg = self.cfg.model == "phiseg"
-        generator = self.eval_generator(salt, index) if phiseg else None
+        family = self.cfg.model
+        stochastic = family in ("phiseg", "prob_unet")
+        generator = self.eval_generator(salt, index) if stochastic else None
         was_training = model.training
         model.eval()
         try:
             with torch.inference_mode():
-                logits = model.sample(x, n_samples, eps=eps, generator=generator) if phiseg else model.sample(x, n_samples)
+                logits = (model.sample(x, n_samples, eps=eps, generator=generator) if stochastic
+                          else model.sample(x, n_samples))
                 out = image_metrics(logits[0], y_all, y_chosen[0])
-                if phiseg:
+                if stochastic:
                     x_rep, y_rep = x.repeat(n_loss, 1, 1, 1), y_chosen.repeat(n_loss, 1, 1)
-                    post_eps, prior_eps = loss_eps if loss_eps is not None else (None, None)
-                    loss, aux = model.loss(model(x_rep, y_rep, post_eps=post_eps, prior_eps=prior_eps,
-                                                 generator=generator), y_rep)
+                    if family == "phiseg":
+                        post_eps, prior_eps = loss_eps if loss_eps is not None else (None, None)
+                        loss_out = model(x_rep, y_rep, post_eps=post_eps, prior_eps=prior_eps, generator=generator)
+                    else:
+                        loss_out = model(x_rep, y_rep, post_eps=loss_eps, generator=generator)
+                    loss, aux = model.loss(loss_out, y_rep)
                 else:
                     loss, aux = model.loss(logits[:, 0], y_chosen)
         finally:
