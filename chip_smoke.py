@@ -7,20 +7,23 @@ Phases, each printing its own lines:
 
 1. environment: torch and CUDA versions, the card's name and power limit,
    the kernel build time, ptxas's registers, spills and static shared
-   memory per kernel, and a check of the bf16 kernel's machine code
-   (``cuobjdump -sass``): every instantiation issues wgmma (``HGMMA``) and
-   TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
+   memory per kernel (no wgmma serialized, no spill in the f32 kernel), and
+   a check of the kernels' machine code (``cuobjdump -sass``): every bf16
+   and f32 instantiation issues wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
 2. every hand-written kernel against its plain PyTorch version on the card,
    at the kernel tests' shapes, edge shapes (one full and one partial K
    chunk, 192 output channels in one block, C_in = 1 on the plain loader,
    images that are no multiple of the tile, batch 1) and each U-Net block
-   shape (batch 8), in float32 and bfloat16, with each bf16 stage's launch
-   plan;
+   shape (batch 8), in float32 and bfloat16, with each stage's launch
+   plan; in float32 also against the kernel's own 3xTF32 arithmetic in
+   plain PyTorch (F32_3XTF32_RTOL), and at F32_EDGE_SHAPES (1x1, 2x2 and
+   4x4 images folded several to a tile, C_in 1, 4, 9 and 384);
 3. the slice: the full-width U-Net forward (filters 32/64/128/192, 2 classes,
    batch 512, 128x128x1, bf16) under inference mode, with the kernel launch
    count checked; those logits against the same model with every block on
    the chain's plain version, on the card; a batch-2 float32 forward on the
-   card (21 launches of the float32 kernel, ``conv3x3_f32_fma``) against the
+   card (21 launches of the float32 kernel, ``conv3x3_f32_3xtf32_wgmma``) against the
    same weights on the CPU (plain path); and the main
    path's bf16 logits of two images against that f32 CPU model;
 4. each block at batch 512 and at batch 64 on the model's weights: the
@@ -116,17 +119,22 @@ Phases, each printing its own lines:
    weights and z noise, TF32 off, in eval mode (every output and, per
    tensor, every gradient) and train mode (outputs, loss terms, the whole
    gradient, running statistics), at phase 6's gates; (b) the 13 trunk
-   block shapes at batch 12, kernel against plain in float32 and bf16 with
-   each bf16 stage's plan, and the float32 kernel's time per block there
-   and at the U-Net's 7 blocks, beside cuDNN f32 (TF32 off) and the bound
-   at the f32 CUDA-core peak; (c) PROB_STEPS bf16 steps at batch 12 with
+   block shapes at batches 1, 12 and 16, kernel against plain in float32
+   and bf16 with each stage's plan, REPEATS relaunches of each float32
+   block at batch 12 bit for bit against the first, and the float32
+   kernel's time per block there and at the U-Net's 7 blocks (the device's
+   time, the host's issue taken out, beside the event time and the host's
+   issue time), beside cuDNN f32 (TF32 off) and two bounds: at the f32
+   CUDA-core peak (67 TFLOP/s) and at the 3xTF32 rate (494.7 / 3); (c)
+   PROB_STEPS bf16 steps at batch 12 with
    device augmentation: 39 launches a step, no host sync, a finite loss,
    ``last_conv``'s gradient an exact zero and its change Adam's decay-only
    update written out, each BN-followed bias of the encoders and fcomb
    carrying the regularizer's term alone (REG_GRAD_RTOL), then ms a step,
    images/s, host issue ms and the phases; (d) the registered float32 step
-   (39 launches of ``conv3x3_f32_fma``) beside the same step with the
-   trunk on cuDNN f32; (e) ``eval_image`` of one image with 100 samples (78
+   (39 launches of ``conv3x3_f32_3xtf32_wgmma``) and the float32 ``unet``
+   step at batch 12 (21), each beside the same step with the trunk on cuDNN
+   f32, with the host's issue time; (e) ``eval_image`` of one image with 100 samples (78
    launches); (f) PROB_STEPS bf16 steps of ``prob_unet_reversible`` (no
    launch) with its evaluation; (g) ``train``/``validate``/``test`` on the
    synthetic LIDC data of phase 7.
@@ -188,17 +196,39 @@ EDGE_SHAPES = [
     ((1, 13, 21, 96), [(96, 192), (192, 5)]),
     ((2, 19, 35, 1), [(1, 32), (32, 200)]),
 ]
+# the float32 kernel's edges beyond EDGE_SHAPES: images smaller than a
+# tile, folded several to a tile (1x1 x 40, 2x2 x 13 with a partial tile,
+# 4x4 x 7, 3x5 x 3), C_in 384 and 1 (the plain loader), 9 (plain) and 4
+# (TMA), odd C_out
+F32_EDGE_SHAPES = [
+    ((40, 1, 1, 384), [(384, 192)]),
+    ((13, 2, 2, 9), [(9, 64), (64, 192)]),
+    ((7, 4, 4, 4), [(4, 33), (33, 32)]),
+    ((5, 4, 4, 1), [(1, 32)]),
+    ((3, 3, 5, 384), [(384, 96)]),
+]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, at 700 W);
-# float32 outside the tensor cores for the f32 kernel's CUDA-core FMA
+# float32 outside the tensor cores (CUDA-core FMA), and TF32 on them, of
+# which 3xTF32 (three products a multiply-add) has a third
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_S = 3.35e12
-# the machine code every bf16 kernel instantiation must hold, and must not
+# the machine code every kernel instantiation must hold, and must not
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
 SASS_FORBIDDEN = ("HMMA",)
-# max |kernel - plain| <= F32_RTOL * max|plain|: both accumulate in f32 (TF32
-# off), only the summation order differs
+BF16_INSTANTIATIONS = 12  # conv3x3_bf16_wgmma<N, K chunk>: N 32/64/128/192 x chunk 16/32/64
+F32_INSTANTIATIONS = 8  # conv3x3_f32_3xtf32_wgmma<N, K chunk>: N 32/64 x chunk 8/16/32, N 96 x 8/16
+# max |kernel - plain| <= F32_RTOL * max|plain|: the f32 kernel's 3xTF32
+# products lie ~2^-21 from f32 ones and its f32 sums run in another order
+# than cuDNN's (TF32 off)
 F32_RTOL = 1e-4
+# max |kernel - 3xTF32 in plain PyTorch| <= F32_3XTF32_RTOL * max|plain|:
+# the same products, the f32 sums in another order and the tensor cores'
+# own accumulation within each K chunk (at most 6.7e-6 over a 3-stage
+# block on an NVIDIA H100 80GB HBM3 at 700 W)
+F32_3XTF32_RTOL = 2e-5
 # bf16: the kernel rounds once per stage after the f32 bias add, the plain
 # version also rounds cuDNN's conv output before it; allow BF16_ULPS ulps of
 # max|plain| over the chain
@@ -343,11 +373,16 @@ PROB_EVAL_TENSOR_L2 = 1e-2
 # bs12 on the card (an NVIDIA H100 80GB HBM3 at 700 W)
 PROB_HARNESS_ITERATIONS = 4
 F32_BLOCK_ITERS = 20  # launches a timed round of one block in the f32 rows
+# ~20 ms of the card's clock: long enough for the host to enqueue a timed
+# round behind it (``device_ms``)
+SLEEP_CYCLES = 40_000_000
 # the gradient of a bias that BatchNorm follows is the regularizer's term
 # alone, REG_WEIGHT * b / sqrt(sum(b^2) + 1e-12), written out here from b:
 # within REG_GRAD_RTOL of the term's max|value| (the model sums the norms
 # with multi-tensor kernels, in another order)
 REG_GRAD_RTOL = 1e-5
+# what ``ops.conv.chain_route`` names the float32 kernel on a card
+F32_ROUTE = "conv3x3_f32_3xtf32_wgmma"
 
 
 def log(msg: str) -> None:
@@ -381,7 +416,9 @@ def chain_weights(chans, gen, device, scale=None):
 
 
 def compare(conv_chain, x, ks, bs, label):
-    """Kernel vs plain version on the same CUDA tensors; returns max |diff|."""
+    """Kernel vs plain version on the same CUDA tensors, and in float32 vs
+    the kernel's own 3xTF32 arithmetic in plain PyTorch; returns max |diff|
+    from the plain version."""
     out = conv_chain.fused_conv_chain(x, ks, bs)
     ref = conv_chain.fused_conv_chain_reference(x, ks, bs)
     torch.cuda.synchronize()
@@ -390,9 +427,26 @@ def compare(conv_chain, x, ks, bs, label):
     scale = ref.float().abs().max().item()
     check(scale > 0, f"{label}: plain output is all zero")
     tol = F32_RTOL * scale if x.dtype == torch.float32 else BF16_ULPS * bf16_ulp(scale)
-    log(f"[kernel] {label:<44} max|diff| {err:.3e}  max|ref| {scale:.3e}  tol {tol:.3e}")
+    emulated = ""
+    if x.dtype == torch.float32:
+        e_err = (out - conv_chain.fused_conv_chain_3xtf32(x, ks, bs)).abs().max().item()
+        emulated = f"  3xTF32 plain {e_err / scale:.2e} of max (tol {F32_3XTF32_RTOL})"
+        check(e_err <= F32_3XTF32_RTOL * scale, f"{label}: {e_err} from the 3xTF32 plain version")
+    log(f"[kernel] {label:<44} max|diff| {err:.3e}  max|ref| {scale:.3e}  tol {tol:.3e}{emulated}")
     check(err <= tol, f"{label}: max|diff| {err} > tol {tol}")
     return err
+
+
+def plan_line(conv_chain, shape, co, dtype) -> str:
+    """The launch plan of one stage, for a log line."""
+    if dtype == torch.float32:
+        p = conv_chain.f32_launch_plan(shape, co)
+        tile = f"{p.n_img}x{p.tile_h}x{p.tile_w} tile (images x rows x columns)"
+    else:
+        p = conv_chain.launch_plan(shape, co)
+        tile = f"{p.tile_h}x16 tile"
+    return (f"chunk {p.chunk}, {p.block_n} channels a block, {tile}, {p.items} items, {p.loader} loader, weights "
+            f"{'resident' if p.resident else f'ring x{p.weight_stages}'}")
 
 
 def logits_agree(got, want, label):
@@ -454,26 +508,31 @@ def cudnn_chain(x, ks, bs):
 
 
 def kernel_name(mangled: str) -> str:
-    """conv3x3_bf16_wgmma<BN, KC> or conv3x3_f32_fma from a mangled name."""
-    m = re.search(r"conv3x3_bf16_wgmmaILi(\d+)ELi(\d+)E", mangled)
-    if m:
-        return f"conv3x3_bf16_wgmma<{m.group(1)},{m.group(2)}>"
-    return "conv3x3_f32_fma" if "conv3x3_f32_fma" in mangled else mangled
+    """conv3x3_bf16_wgmma<BN, KC> or conv3x3_f32_3xtf32_wgmma<BN, KC> from a mangled name."""
+    m = re.search(r"(conv3x3_bf16_wgmma|conv3x3_f32_3xtf32_wgmma)ILi(\d+)ELi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else mangled
 
 
-def ptxas_report(build_log: str) -> None:
-    """Registers, spills and static shared memory per kernel, from ptxas -v."""
-    name, spill = None, ""
+def ptxas_report(build_log: str) -> dict:
+    """Registers, spills and static shared memory per kernel, from ptxas -v;
+    fails on any serialized wgmma (C7512, C7513, C7518) and on a spill in
+    the f32 kernel. Returns {kernel: ptxas's line}."""
+    name, spill, report, faults = None, "", {}, []
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = kernel_name(m.group(1))
         elif "spill stores" in line:
             spill = line.split(":")[-1].strip() if ":" in line else line.strip()
+            if (name or "").startswith("conv3x3_f32") and any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                faults.append(f"ptxas spills in {name}: {spill}")
         elif "Used" in line and name:
-            log(f"[ptxas] {name}: {line.split('Used', 1)[1].strip()}; {spill}")
-        if "C7518" in line or "serialized" in line:
-            raise AssertionError(f"ptxas serialized the wgmma: {line.strip()}")
+            report[name] = f"{line.split('Used', 1)[1].strip()}; {spill}"
+            log(f"[ptxas] {name}: {report[name]}")
+        if re.search(r"C751[238]", line) or "serialized" in line:
+            faults.append(f"ptxas serialized the wgmma: {line.strip()}")
+    check(not faults, "; ".join(faults))
+    return report
 
 
 def find_cuobjdump():
@@ -486,18 +545,22 @@ def find_cuobjdump():
 
 
 def sass_check(lib_path, build_log: str) -> dict:
-    """Every bf16 kernel instantiation issues wgmma and TMA loads and no
-    mma.sync: read from its machine code (cuobjdump -sass) where the toolkit
-    has cuobjdump, else from the ptxas log (each bf16 entry compiled for
-    sm_90a, which alone has wgmma, and no wgmma serialized). Returns
-    {kernel: {op: count}}."""
+    """Every bf16 and f32 kernel instantiation issues wgmma and TMA loads and
+    no mma.sync, and no other kernel is there (the f32 CUDA-core kernel
+    ``conv3x3_f32_fma`` is gone): read from the machine code (cuobjdump
+    -sass) where the toolkit has cuobjdump, else from the ptxas log (each
+    entry compiled for sm_90a, which alone has wgmma, and no wgmma
+    serialized). Returns {kernel: {op: count}}."""
     tool = find_cuobjdump()
+    want = {"conv3x3_bf16_wgmma": BF16_INSTANTIATIONS, "conv3x3_f32_3xtf32_wgmma": F32_INSTANTIATIONS}
     if tool is None:
         entries = [kernel_name(m) for m in re.findall(r"Compiling entry function '(\S+)' for 'sm_90a'", build_log)]
-        bf16 = [e for e in entries if e.startswith("conv3x3_bf16_wgmma")]
-        check(len(bf16) == 12, f"ptxas compiled {len(bf16)} bf16 kernels for sm_90a, expected 12")
-        log(f"[sass] no cuobjdump: ptxas compiled {len(bf16)} bf16 wgmma kernels for sm_90a, none serialized")
-        return {e: {} for e in bf16}
+        for family, n in want.items():
+            got = [e for e in entries if e.startswith(family + "<")]
+            check(len(got) == n, f"ptxas compiled {len(got)} {family} kernels for sm_90a, expected {n}")
+        check(len(entries) == sum(want.values()), f"ptxas compiled other kernels too: {entries}")
+        log(f"[sass] no cuobjdump: ptxas compiled {len(entries)} wgmma kernels for sm_90a, none serialized")
+        return {e: {} for e in entries}
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
                           timeout=300).stdout
     counts, name = {}, None
@@ -509,13 +572,16 @@ def sass_check(lib_path, build_log: str) -> dict:
         elif name:
             for op in counts[name]:
                 counts[name][op] += len(re.findall(rf"\b{op}\b", line))
-    bf16 = {k: v for k, v in counts.items() if k.startswith("conv3x3_bf16_wgmma")}
-    check(len(bf16) == 12, f"{len(bf16)} bf16 kernels in the library's machine code, expected 12")
-    for k, v in bf16.items():
+    for family, n in want.items():
+        got = [k for k in counts if k.startswith(family + "<")]
+        check(len(got) == n, f"{len(got)} {family} kernels in the library's machine code, expected {n}")
+    check(len(counts) == sum(want.values()) and "conv3x3_f32_fma" not in sass,
+          f"other kernels in the library's machine code: {sorted(counts)}")
+    for k, v in counts.items():
         log(f"[sass] {k}: " + ", ".join(f"{op} {n}" for op, n in v.items()))
         check(all(v[op] > 0 for op in SASS_REQUIRED) and not any(v[op] for op in SASS_FORBIDDEN),
               f"{k}: machine code {v}, needs {SASS_REQUIRED} and none of {SASS_FORBIDDEN}")
-    return bf16
+    return counts
 
 
 def chain_cost(batch, size, chans, itemsize: int = 2):
@@ -545,6 +611,35 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Like ``cuda_ms``, with the host's issue taken out: a sleep kernel
+    holds the stream while the host enqueues every call, so the events read
+    the device's time alone."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """The host's ms to issue one call while the device is busy."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    took = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return took
 
 
 def time_blocks(conv_chain, model, batch, cuda_gen, dev, card) -> list:
@@ -1696,7 +1791,7 @@ def prob_run(model, x, y, eps, train: bool):
 
 def prob_parity(conv_chain, dev) -> dict:
     """(a): the float32 ``prob_unet`` at full width, the same weights and z
-    noise on the card (its trunk on ``conv3x3_f32_fma``) and on the CPU (the
+    noise on the card (its trunk on ``conv3x3_f32_3xtf32_wgmma``) and on the CPU (the
     plain chain), TF32 off: eval mode, every output and gradient (the
     gradient gate per tensor), then train mode, the outputs, loss terms,
     the whole gradient and the running statistics, at phase 6's gates."""
@@ -1749,7 +1844,7 @@ def prob_parity(conv_chain, dev) -> dict:
                             for n, b in models["cpu"].named_buffers())
             check(stats_err <= PHISEG_STATS_RTOL, f"prob_unet running statistics: rel diff {stats_err:.3e}")
             tol += f"; running statistics rel {stats_err:.3e}, tol {PHISEG_STATS_RTOL}"
-        log(f"[prob_unet] f32 {mode} mode, card ({launched} launches of conv3x3_f32_fma) vs CPU, batch "
+        log(f"[prob_unet] f32 {mode} mode, card ({launched} launches of {F32_ROUTE}) vs CPU, batch "
             f"{PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs {out_err:.3e} of max|ref| (tol {of_max}), "
             f"loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), last_conv's gradient an exact zero on "
             f"both, whole gradient rel L2 {l2:.3e} ({tol}); worst tensor by max {worst} {per_tensor:.3e} of its "
@@ -1762,29 +1857,46 @@ def prob_parity(conv_chain, dev) -> dict:
 
 def f32_block_row(conv_chain, x, ks, bs, block: str, card: str) -> dict:
     """Times of one float32 chain at its shape: the kernel, the plain
-    version and cuDNN conv+bias+ReLU (TF32 off), CUDA events, the min of 2
-    rounds of F32_BLOCK_ITERS, beside its bound at the f32 CUDA-core peak."""
+    version and cuDNN conv+bias+ReLU (TF32 off), CUDA events, the min of 5
+    rounds of F32_BLOCK_ITERS: ``ms`` the device's time with the host's
+    issue (its plan, tensor maps and launch, or cuDNN's) taken out, the same
+    way for every route (``device_ms``); ``event_ms`` with the host issuing
+    as the device runs (how the rows of the earlier, CUDA-core f32 kernel
+    were timed), which at 2x2-8x8 is the host's pace; ``host_ms`` the
+    host's time to issue one call. Beside two
+    bounds: at the f32 CUDA-core peak (``fma_bound_ms``) and at the 3xTF32
+    rate (``bound_ms``), each the larger of its FLOPs and the chain's f32
+    bytes at the memory rate."""
     batch, size, _, ci = x.shape
     chans = [(k.shape[1], k.shape[0]) for k in ks]
     packed = [conv_chain.pack_kernel(k, x.dtype) for k in ks]
-    k_ms = min(cuda_ms(lambda: conv_chain.fused_conv_chain(x, ks, bs, packed=packed), F32_BLOCK_ITERS)
-               for _ in range(2))
-    p_ms = min(cuda_ms(lambda: conv_chain.fused_conv_chain_reference(x, ks, bs), F32_BLOCK_ITERS) for _ in range(2))
-    c_ms = min(cuda_ms(lambda: cudnn_chain(x, ks, bs), F32_BLOCK_ITERS) for _ in range(2))
-    b_ms, b_by = bound(*chain_cost(batch, size, chans, itemsize=4), PEAK_F32_FLOPS)
-    log(f"[time] f32 {block} ({batch}, {size}, {size}, {ci})->{chans[-1][1]} x3: conv3x3_f32_fma {k_ms:.3f} ms "
-        f"({b_ms / k_ms:.1%} of its {b_ms:.3f} ms bound by {b_by} at 67 TFLOP/s f32), plain {p_ms:.3f} ms, cuDNN "
-        f"f32 conv+bias+ReLU (TF32 off) {c_ms:.3f} ms | card: {card}")
+    calls = {"kernel": lambda: conv_chain.fused_conv_chain(x, ks, bs, packed=packed),
+             "plain": lambda: conv_chain.fused_conv_chain_reference(x, ks, bs),
+             "cudnn": lambda: cudnn_chain(x, ks, bs)}
+    t = {(name, how): min(timer(fn, F32_BLOCK_ITERS) for _ in range(5)) for name, fn in calls.items()
+         for how, timer in (("ms", cuda_ms), ("device", device_ms), ("host", host_ms))}
+    k_ms, p_ms, c_ms = t["kernel", "device"], t["plain", "device"], t["cudnn", "device"]
+    cost = chain_cost(batch, size, chans, itemsize=4)
+    f_ms, f_by = bound(*cost, PEAK_F32_FLOPS)
+    b_ms, b_by = bound(*cost, PEAK_3XTF32_FLOPS)
+    log(f"[time] f32 {block} ({batch}, {size}, {size}, {ci})->{chans[-1][1]} x3, device ms: {F32_ROUTE} {k_ms:.4f} "
+        f"(event {t['kernel', 'ms']:.4f}, host issue {t['kernel', 'host']:.4f}; {b_ms / k_ms:.1%} of its "
+        f"{b_ms:.4f} ms bound by {b_by} at 3xTF32, 494.7/3 TFLOP/s; {f_ms / k_ms:.1%} of {f_ms:.4f} ms by {f_by} at "
+        f"67 TFLOP/s f32 FMA), plain {p_ms:.4f}, cuDNN f32 conv+bias+ReLU (TF32 off) {c_ms:.4f} (event "
+        f"{t['cudnn', 'ms']:.4f}, host issue {t['cudnn', 'host']:.4f}), kernel/cuDNN {k_ms / c_ms:.3f} | card: {card}")
     return {"block": block, "batch": batch, "ms": k_ms, "plain_ms": p_ms, "library_ms": c_ms, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "fma_bound_ms": f_ms, "fma_bound_by": f_by, "event_ms": t["kernel", "ms"],
+            "host_ms": t["kernel", "host"], "library_event_ms": t["cudnn", "ms"],
+            "library_host_ms": t["cudnn", "host"]}
 
 
 def prob_blocks(conv_chain, dev, card: str) -> dict:
     """(b): the 13 trunk block shapes at each batch the ProbUNet path gives
-    the kernel (PROB_CHECK_BATCHES: the launch plan's items, and at 128x128
-    its tile height, depend on the batch), kernel against plain in float32
-    and bf16 (each bf16 stage's plan logged), and the float32 kernel's time
-    per block at batch 12 at those shapes and at the U-Net's 7."""
+    the kernel (PROB_CHECK_BATCHES: the launch plan's tiles and items depend
+    on the batch), kernel against plain in float32 and bf16 (each stage's
+    plan logged), REPEATS relaunches of each float32 block at batch 12
+    against the first, bit for bit, and the float32 kernel's time per block
+    at batch 12 at those shapes and at the U-Net's 7."""
     gen = torch.Generator().manual_seed(14)
     rows = {"prob_unet": [], "unet": []}
     errs = []
@@ -1798,13 +1910,17 @@ def prob_blocks(conv_chain, dev, card: str) -> dict:
                     x = torch.randn((batch, size, size, ci), generator=gen).to(dev, dtype)
                     errs.append(compare(conv_chain, x, ks, bs, f"{name} prob_unet {block} ({batch}, {size}, {size}, "
                                                                f"{ci})->{co}"))
-                    if dtype == torch.bfloat16:
-                        for c_in, c_out in chans:
-                            p = conv_chain.launch_plan((batch, size, size, c_in), c_out)
-                            log(f"[plan]   {block} bs{batch} {c_in}->{c_out} at {size}x{size}: chunk {p.chunk}, "
-                                f"{p.block_n} channels a block, {p.tile_h}x16 tile, {p.items} items, {p.loader} "
-                                f"loader, weights {'resident' if p.resident else 'ring'}")
+                    for c_in, c_out in chans[:2]:
+                        log(f"[plan]   {block} bs{batch} {c_in}->{c_out} at {size}x{size}: "
+                            f"{plan_line(conv_chain, (batch, size, size, c_in), c_out, dtype)}")
                     if dtype == torch.float32 and batch == PROB_BATCH:
+                        packed = [conv_chain.pack_kernel(k, x.dtype) for k in ks]
+                        first = conv_chain.fused_conv_chain(x, ks, bs, packed=packed)
+                        differ = sum(not torch.equal(conv_chain.fused_conv_chain(x, ks, bs, packed=packed), first)
+                                     for _ in range(REPEATS))
+                        log(f"[repeat] f32 prob_unet {block} bs{batch}: {REPEATS - differ} of {REPEATS} repeated "
+                            f"launches bit-identical to the first")
+                        check(differ == 0, f"f32 {block} bs{batch}: {differ} of {REPEATS} repeated launches differ")
                         rows["prob_unet"].append(f32_block_row(conv_chain, x, ks, bs, f"prob_unet {block}", card))
                     del x
         for block, size, ci, co in BLOCKS:
@@ -1814,12 +1930,15 @@ def prob_blocks(conv_chain, dev, card: str) -> dict:
             rows["unet"].append(f32_block_row(conv_chain, x, ks, bs, f"unet {block}", card))
             del x
     for net, rs in rows.items():
-        k, c, b = (sum(r[key] for r in rs) for key in ("ms", "library_ms", "bound_ms"))
-        log(f"[time] f32 {net} trunk, {len(rs)} blocks at bs{PROB_BATCH}: conv3x3_f32_fma {k:.3f} ms, cuDNN f32 "
-            f"{c:.3f} ms, bound {b:.3f} ms ({b / k:.1%}) | card: {card}")
+        k, e, c, ce, b, f = (sum(r[key] for r in rs) for key in ("ms", "event_ms", "library_ms", "library_event_ms",
+                                                                 "bound_ms", "fma_bound_ms"))
+        log(f"[time] f32 {net} trunk, {len(rs)} blocks at bs{PROB_BATCH}, device ms: {F32_ROUTE} {k:.3f} (event "
+            f"{e:.3f}), cuDNN f32 {c:.3f} (event {ce:.3f}; kernel/cuDNN {k / c:.3f}), bound {b:.3f} ms at 3xTF32 "
+            f"({b / k:.1%}), {f:.3f} ms at f32 FMA ({f / k:.1%}) | card: {card}")
     log(f"[kernel] prob_unet trunk: {len(errs)} block checks ({len(PROB_BLOCKS)} blocks x batches "
         f"{PROB_CHECK_BATCHES} x f32, bf16) all within tolerance")
-    return {"rows": rows, "max_abs_err": max(errs)}
+    n = len(PROB_BLOCKS) * len(PROB_CHECK_BATCHES)
+    return {"rows": rows, "max_abs_err": max(errs), "f32_max_abs_err": max(errs[:n])}
 
 
 def prob_grad_gates(model, before: dict, cfg, label: str) -> dict:
@@ -1865,38 +1984,52 @@ def prob_grad_gates(model, before: dict, cfg, label: str) -> dict:
     return {"reg_term_err": term_err, "last_conv_adam_err": adam_err, "regularized_biases": len(cut) - zeros}
 
 
-def prob_f32_step(conv_chain, dev, card: str, log_dir: str) -> dict:
-    """(d): the registered float32 ``prob_unet`` step at batch 12: 39
-    launches of ``conv3x3_f32_fma``, and its ms beside the same step with
-    every trunk block on cuDNN f32 (the chain's plain version in place of
-    the kernel's wrapper, ``plain_chain``; TF32 off), in turns."""
+def f32_step(conv_chain, dev, card: str, log_dir: str, experiment: str, launches: int, batch=None) -> dict:
+    """(d): a registered float32 step (``prob_unet``: 39 launches of the
+    float32 kernel; ``unet`` at batch 12: 21), and its ms beside the same
+    step with every trunk block on cuDNN f32 (the chain's plain version in
+    place of the kernel's wrapper, ``plain_chain``; TF32 off as ``Trainer``
+    sets it), in turns, each with the host's time to issue one step onto an
+    idle device (the min of MODE_TIME_STEPS)."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
 
-    cfg = get_experiment(PROB_EXPERIMENT)
-    check(cfg.dtype == "float32", f"{PROB_EXPERIMENT} is registered in {cfg.dtype}")
+    cfg = get_experiment(experiment)
+    check(cfg.dtype == "float32", f"{experiment} is registered in {cfg.dtype}")
+    cfg = dataclasses.replace(cfg, batch_size=batch or cfg.batch_size)
     xs, ys = train_batches(1, dev, cfg.batch_size)
     trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
-    check(trainer.chain_route == "conv3x3_f32_fma", f"f32 chains route to {trainer.chain_route}")
+    check(trainer.chain_route == F32_ROUTE, f"f32 chains route to {trainer.chain_route}")
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "Trainer left TF32 on for a float32 experiment")
     trainer.train_step(xs[0], ys[0])
     torch.cuda.synchronize()
     conv_chain.launches = 0
     trainer.train_step(xs[0], ys[0])
     torch.cuda.synchronize()
     launched = conv_chain.launches
-    check(launched == PROB_LAUNCHES, f"f32 {PROB_EXPERIMENT} step: {launched} launches of conv3x3_f32_fma")
+    check(launched == launches, f"f32 {experiment} step: {launched} launches of {F32_ROUTE}")
     ms = {"kernel": math.inf, "cudnn": math.inf}
+    host = dict(ms)
     for route in ("kernel", "cudnn", "cudnn", "kernel"):
         with plain_chain() if route == "cudnn" else contextlib.nullcontext():
             ms[route] = min(ms[route], cuda_ms(lambda: trainer.train_step(xs[0], ys[0]), MODE_TIME_STEPS))
-    check(conv_chain.launches == launched + 2 * (MODE_TIME_STEPS + 1) * PROB_LAUNCHES,
+            for _ in range(MODE_TIME_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step(xs[0], ys[0])
+                host[route] = min(host[route], (time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+    check(conv_chain.launches == launched + 2 * (2 * MODE_TIME_STEPS + 1) * launches,
           f"f32 timing: {conv_chain.launches - launched} launches, expected the kernel's rounds only")
-    log(f"[time] {PROB_EXPERIMENT} f32 train step bs{cfg.batch_size} as registered ({launched} launches of "
-        f"conv3x3_f32_fma a step): {ms['kernel']:.3f} ms; the same step with the trunk on cuDNN f32, TF32 off: "
-        f"{ms['cudnn']:.3f} ms (min of 2 rounds of {MODE_TIME_STEPS} each, in turns) | card: {card}")
+    log(f"[time] {experiment} f32 train step bs{cfg.batch_size} as registered ({launched} launches of "
+        f"{F32_ROUTE} a step): {ms['kernel']:.3f} ms, host issue {host['kernel']:.3f} ms; the same step with the "
+        f"trunk on cuDNN f32, TF32 off: {ms['cudnn']:.3f} ms, host issue {host['cudnn']:.3f} ms (min of 2 rounds of "
+        f"{MODE_TIME_STEPS} each, in turns) | card: {card}")
     del trainer
     torch.cuda.empty_cache()
-    return {"launches": launched, "ms": ms["kernel"], "cudnn_ms": ms["cudnn"]}
+    return {"launches": launched, "ms": ms["kernel"], "cudnn_ms": ms["cudnn"], "host_ms": host["kernel"],
+            "cudnn_host_ms": host["cudnn"]}
 
 
 def prob_unet_phase(conv_chain, dev, card: str, log_root: str) -> dict:
@@ -1906,7 +2039,8 @@ def prob_unet_phase(conv_chain, dev, card: str, log_root: str) -> dict:
     blocks = prob_blocks(conv_chain, dev, card)
     plain = mode_slice(conv_chain, dev, card, log_root, PROB_EXPERIMENT, launches=PROB_LAUNCHES,
                        gates=prob_grad_gates, time_steps=TIME_STEPS)
-    f32 = prob_f32_step(conv_chain, dev, card, log_root)
+    f32 = f32_step(conv_chain, dev, card, log_root, PROB_EXPERIMENT, PROB_LAUNCHES)
+    f32_unet = f32_step(conv_chain, dev, card, log_root, "unet", len(BLOCKS) * STAGES_PER_BLOCK, batch=PROB_BATCH)
     evaluation = eval_timing(conv_chain, dev, card, log_root, PROB_EXPERIMENT, launches=2 * PROB_LAUNCHES)
     rev = mode_slice(conv_chain, dev, card, log_root, PROB_REV_EXPERIMENT, launches=0, gates=prob_grad_gates)
     # untrained, the reversible trunk's he_normal coupling blocks grow their
@@ -1918,8 +2052,8 @@ def prob_unet_phase(conv_chain, dev, card: str, log_root: str) -> dict:
     harnessed = harness(conv_chain, dev, card, log_root, names=(PROB_EXPERIMENT,), iterations=PROB_HARNESS_ITERATIONS,
                         frequency=PROB_HARNESS_ITERATIONS)[PROB_EXPERIMENT]
     log(f"[prob_unet] phase 9 took {time.perf_counter() - t0:.1f} s")
-    return {"parity": parity, "blocks": blocks, "plain": plain, "f32": f32, "eval": evaluation, "rev": rev,
-            "rev_eval": rev_eval, "harness": harnessed}
+    return {"parity": parity, "blocks": blocks, "plain": plain, "f32": f32, "f32_unet": f32_unet, "eval": evaluation,
+            "rev": rev, "rev_eval": rev_eval, "harness": harnessed}
 
 
 def main() -> int:
@@ -1945,8 +2079,9 @@ def main() -> int:
     log(f"[env] kernel build+load {build_s:.2f} s -> {os.path.relpath(_build.library_path(), REPO)}")
     log(f"[env] host: {os.cpu_count()} CPUs, load average {os.getloadavg()[0]:.2f} over the last minute")
     build_log = _build.library_path().with_suffix(".log").read_text()
-    ptxas_report(build_log)
+    ptxas = ptxas_report(build_log)
     sass = sass_check(_build.library_path(), build_log)
+    check(chain_route(torch.float32, dev) == F32_ROUTE, f"f32 chains route to {chain_route(torch.float32, dev)}")
 
     # 2. kernel vs plain version on the card
     gen = torch.Generator().manual_seed(0)
@@ -1956,15 +2091,12 @@ def main() -> int:
             x = torch.randn(shape, generator=gen).to(dev, dtype)
             ks, bs = chain_weights(chans, gen, dev, scale=0.2)
             compare(conv_chain, x, ks, bs, f"{name} test {shape} {chans}")
-        for shape, chans in EDGE_SHAPES:
+        for shape, chans in EDGE_SHAPES + (F32_EDGE_SHAPES if dtype == torch.float32 else []):
             x = torch.randn(shape, generator=gen).to(dev, dtype)
             ks, bs = chain_weights(chans, gen, dev)
             compare(conv_chain, x, ks, bs, f"{name} edge {shape} {chans}")
-            if dtype == torch.bfloat16:
-                for ci, co in chans:
-                    p = conv_chain.launch_plan((*shape[:3], ci), co)
-                    log(f"[plan]   {ci}->{co}: chunk {p.chunk}, {p.block_n} channels a block, {p.tile_h}x16 "
-                        f"tile, {p.items} items, {p.loader} loader, weights {'resident' if p.resident else 'ring'}")
+            for ci, co in chans:
+                log(f"[plan]   {ci}->{co}: {plan_line(conv_chain, (*shape[:3], ci), co, dtype)}")
         x = torch.ones((1, 12, 12, 3), device=dev, dtype=dtype)
         ks = [torch.full((4, 3, 3, 3), 0.1, device=dev), torch.full((4, 4, 3, 3), 0.1, device=dev)]
         bs = [torch.zeros(4, device=dev), torch.zeros(4, device=dev)]
@@ -2072,6 +2204,7 @@ def main() -> int:
         prob = prob_unet_phase(conv_chain, dev, card, log_root)
 
     main = blocks[BATCH]
+    f32_rows = prob["blocks"]["rows"]["prob_unet"]
     log(json.dumps({"kernels": [{
         "name": "fused_conv_chain",
         "route": "cuda",
@@ -2126,6 +2259,29 @@ def main() -> int:
         "prob_unet_block_max_abs_err": prob["blocks"]["max_abs_err"],
         "prob_unet_validation_eval_s_per_image": prob["harness"]["validation_eval_s_per_image"],
         "f32_blocks_bs12": prob["blocks"]["rows"],
+    }, {
+        "name": "fused_conv_chain_f32",
+        "kernel": F32_ROUTE,
+        "route": "cuda",
+        "source": "unet_zoo_tpu_torch/csrc/conv_chain.cu",
+        "replaces": "unet_zoo_tpu/ops/pallas/conv_chain.py:132",
+        # the f32 main path: one registered prob_unet step, the count set to 0 just before it
+        "launches": prob["f32"]["launches"],
+        "max_abs_err": prob["blocks"]["f32_max_abs_err"],
+        # the 13 ProbUNet trunk blocks at bs12 (phase 9 (b)), device ms; bound at 3xTF32
+        "ms": sum(r["ms"] for r in f32_rows),
+        "plain_ms": sum(r["plain_ms"] for r in f32_rows),
+        "bound_ms": sum(r["bound_ms"] for r in f32_rows),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in f32_rows) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in f32_rows),
+        "fma_bound_ms": sum(r["fma_bound_ms"] for r in f32_rows),
+        "event_ms": sum(r["event_ms"] for r in f32_rows),
+        "library_event_ms": sum(r["library_event_ms"] for r in f32_rows),
+        "unet_blocks_ms": sum(r["ms"] for r in prob["blocks"]["rows"]["unet"]),
+        "unet_blocks_library_ms": sum(r["library_ms"] for r in prob["blocks"]["rows"]["unet"]),
+        "prob_unet_step": prob["f32"],
+        "unet_step_bs12": prob["f32_unet"],
+        "ptxas": {k: v for k, v in ptxas.items() if k.startswith(F32_ROUTE)},
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -138,7 +138,11 @@ GRAD_BF16_RTOL_OF_MAX = 2 * 2.0 ** -8
 
 
 def _plain_stage(x, packed, bias):
-    kernel = packed[:bias.shape[0], :, :, :x.shape[-1]].permute(0, 3, 1, 2)
+    """One stage read from the packed layout; in float32 from both tf32
+    halves, whose sum is exact in f32 and within 2^-22 of the kernel."""
+    co, ci = bias.shape[0], x.shape[-1]
+    kernel = packed[0] + packed[1] if x.dtype == torch.float32 else packed
+    kernel = kernel[:co, :, :, :ci].permute(0, 3, 1, 2)
     with torch.no_grad():
         return torch.relu(conv_chain.conv2d_nhwc(x, kernel, bias, padding=1))
 
@@ -310,29 +314,52 @@ def test_launch_plan_takes_the_plain_loader_for_a_misaligned_input():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pack_kernel_round_trip(ci, dtype):
     """The packed layout (C_out_pad, 3, 3, C_in_pad) holds whole K chunks of
-    the bf16 kernel and gives back the OIHW kernel, zeros elsewhere."""
+    the kernel of its dtype and gives back the OIHW kernel, zeros elsewhere:
+    in bf16 the kernel itself; in float32 twice, its tf32 hi and lo halves
+    (``split_tf32``), whose sum gives it back within 2^-22 of each value."""
     co = 33
     k = torch.from_numpy(np.random.default_rng(ci).standard_normal((co, ci, 3, 3)).astype(np.float32))
     packed = conv_chain.pack_kernel(k, dtype)
-    chunk = conv_chain.chunk_width(ci)
-    assert chunk == min(c for c in (16, 32, 64) if c >= min(ci, 64))
-    assert packed.shape == (64, 3, 3, conv_chain.padded_ci(ci)) and packed.dtype == dtype
+    assert packed.shape == conv_chain.packed_shape(co, ci, dtype) and packed.dtype == dtype
+    n, c, tap = 5, ci - 1, 7
+    if dtype == torch.float32:
+        chunk = conv_chain.f32_chunk_width(ci)
+        assert chunk == min(c for c in (8, 16, 32) if c >= min(ci, 32))
+        assert packed.shape == (2, 64, 3, 3, conv_chain.f32_padded_ci(ci))
+        assert packed.shape[-1] == conv_chain.f32_launch_plan((1, 8, 8, ci), co).ci_pad
+        hi, lo = conv_chain.split_tf32(k)
+        halves = packed[:, :co, :, :, :ci].permute(0, 1, 4, 2, 3)
+        torch.testing.assert_close(halves[0], hi, rtol=0, atol=0)
+        torch.testing.assert_close(halves[1], lo, rtol=0, atol=0)
+        assert ((halves[0] + halves[1] - k).abs() <= 2.0 ** -22 * k.abs()).all()
+        assert not packed[:, co:].any() and not packed[..., ci:].any()
+        expect = hi[n, c, tap // 3, tap % 3]
+        packed = packed[0]  # the hi half, as its TMA box reads it
+    else:
+        chunk = conv_chain.chunk_width(ci)
+        assert chunk == min(c for c in (16, 32, 64) if c >= min(ci, 64))
+        assert packed.shape == (64, 3, 3, conv_chain.padded_ci(ci))
+        assert packed.shape[-1] == conv_chain.launch_plan((1, 8, 8, ci), co).ci_pad
+        torch.testing.assert_close(packed[:co, :, :, :ci].permute(0, 3, 1, 2), k.to(dtype), rtol=0, atol=0)
+        assert not packed[co:].any() and not packed[:, :, :, ci:].any()
+        expect = k[n, c, tap // 3, tap % 3].to(dtype)
     assert packed.shape[-1] % chunk == 0 and packed.shape[-1] - ci < chunk
-    assert packed.shape[-1] == conv_chain.launch_plan((1, 8, 8, ci), co).ci_pad
-    torch.testing.assert_close(packed[:co, :, :, :ci].permute(0, 3, 1, 2), k.to(dtype), rtol=0, atol=0)
-    assert not packed[co:].any() and not packed[:, :, :, ci:].any()
     # viewed as the weights' TMA tensor (C_out_pad, 9 * C_in_pad), K-major:
     # row n, column tap * C_in_pad + c is k[n, c, tap // 3, tap % 3]
     rows = packed.reshape(64, -1)
-    n, c, tap = 5, ci - 1, 7
-    assert rows[n, tap * packed.shape[-1] + c] == k[n, c, tap // 3, tap % 3].to(dtype)
+    assert rows[n, tap * packed.shape[-1] + c] == expect
 
 
-def test_plain_stage_slices_the_packed_layout():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_stage_slices_the_packed_layout(dtype):
     """The test helper that stands in for a launch reads the packed layout as
-    the kernel does: one full and one partial 64-channel chunk."""
-    x, ks, bs = _torch_args(*_inputs((1, 9, 11, 96), [(96, 40)], seed=7))
-    packed = conv_chain.pack_kernel(ks[0], torch.float32)
-    assert packed.shape == (64, 3, 3, 128)
+    the kernel does: in bf16 one full and one partial 64-channel chunk, in
+    float32 three 32-channel chunks of both tf32 halves, whose sum is the
+    kernel the plain version then runs."""
+    x, ks, bs = _torch_args(*_inputs((1, 9, 11, 96), [(96, 40)], seed=7), dtype)
+    packed = conv_chain.pack_kernel(ks[0], dtype)
+    assert packed.shape == ((2, 64, 3, 3, 96) if dtype == torch.float32 else (64, 3, 3, 128))
+    if dtype == torch.float32:
+        ks = [sum(conv_chain.split_tf32(ks[0]))]
     torch.testing.assert_close(_plain_stage(x, packed, bs[0]), fused_conv_chain_reference(x, ks, bs),
                                rtol=0, atol=0)

@@ -282,13 +282,13 @@ def test_memory_mode_checkpoint_resume_is_exact(cfg, tmp_path):
 
 def test_f32_chains_on_the_card_take_the_kernel():
     """The conv chain's route: on CUDA the hand-written kernel in both
-    dtypes (float32 on its CUDA-core parity kernel, never a library conv),
+    dtypes (float32 on its 3xTF32 tensor-core kernel, never a library conv),
     on the CPU the plain version; ``Trainer`` reports it."""
     from unet_zoo_tpu_torch.ops import conv
     from unet_zoo_tpu_torch.ops.pallas.conv_chain import fused_conv_chain_reference
 
     assert conv.chain_route(torch.bfloat16, "cuda:0") == "conv3x3_bf16_wgmma"
-    assert conv.chain_route(torch.float32, "cuda") == "conv3x3_f32_fma"
+    assert conv.chain_route(torch.float32, "cuda") == "conv3x3_f32_3xtf32_wgmma"
     assert conv.chain_route(torch.float32, "cpu") == conv.chain_route(torch.bfloat16, "cpu") == "plain"
     assert Trainer(ExperimentConfig(**TINY), device="cpu").chain_route == "plain"
     seq = conv.ConvSeq(3, 4, 2, generator=torch.Generator().manual_seed(0))

@@ -6,7 +6,8 @@
 Times the float32 ``unet`` train step (batch 12 by default, 128x128x1, the
 experiment's device augmentation, coupled-L2 Adam, plateau LR) three ways:
 as the port runs it, every block on the hand-written float32 kernel
-(``conv3x3_f32_fma``, with cuDNN's conv gradients, TF32 off); and, as
+(``conv3x3_f32_3xtf32_wgmma``: 3xTF32 on the tensor cores, f32-level
+error; with cuDNN's conv gradients, TF32 off as ``Trainer`` sets it); and, as
 yardsticks the port never takes, every block on the chain's plain version,
 whose convs are cuDNN's, in float32 with TF32 off and with TF32 on. Each is
 also held against the same weights on the CPU: the float32 forward of two
@@ -56,7 +57,7 @@ def route(name: str):
         with contextlib.nullcontext() if name == "kernel" else mock.patch.object(conv, "fused_conv_chain", plain):
             yield
     finally:
-        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def main() -> int:
@@ -92,7 +93,7 @@ def main() -> int:
                 m_gpu = get_model("unet", device=dev, **{**kw, "generator": torch.Generator().manual_seed(0)}).eval()
                 with torch.inference_mode():
                     err = ((m_gpu(x2.to(dev)).cpu() - want).abs().max() / want.abs().max()).item()
-                trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+                trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tf32=name == "tf32")
                 trainer.train_step(x, y)
                 torch.cuda.synchronize()
                 conv_chain.launches = 0
@@ -110,7 +111,8 @@ def main() -> int:
                     best = min(best, start.elapsed_time(end) / args.steps)
                 results[name] = {"ms": best, "images_s": args.batch / best * 1e3, "launches": launches,
                                  "forward_err_of_max": err, "holds_f32_gate": err <= F32_GATE}
-                print(f"[f32 route] {name:<6} unet f32 train step bs{args.batch}: {best:.3f} ms, "
+                print(f"[f32 route] {name:<6} ({trainer.chain_route if name == 'kernel' else 'plain chain'}) unet "
+                      f"f32 train step bs{args.batch}: {best:.3f} ms, "
                       f"{args.batch / best * 1e3:.1f} images/s, {launches} conv-chain launches a step; f32 forward "
                       f"vs CPU {err:.3e} of max|ref| (gate {F32_GATE}: {'holds' if err <= F32_GATE else 'fails'}) "
                       f"| card: {card}", flush=True)

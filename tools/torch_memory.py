@@ -53,10 +53,10 @@ def state_bytes(trainer) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def step_peak(experiment: str, mode: str, batch: int, dev, log_dir: str) -> dict:
+def step_peak(experiment: str, mode: str, batch: int, dev, log_dir: str, tf32: bool = False) -> dict:
     """The peak allocated bytes of one steady float32 train step of
-    ``experiment`` in memory mode ``mode`` at ``batch``, and the state's own
-    bytes."""
+    ``experiment`` in memory mode ``mode`` at ``batch``, with cuDNN's TF32
+    as ``tf32`` says (``Trainer`` sets it), and the state's own bytes."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
 
@@ -64,7 +64,7 @@ def step_peak(experiment: str, mode: str, batch: int, dev, log_dir: str) -> dict
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((batch, *cfg.image_size, cfg.input_channels), generator=gen, device=dev)
     y = (x[..., 0] > 0).long()
-    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tensorboard=False)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tensorboard=False, tf32=tf32)
     trainer.train_step(x, y)  # warm-up: Adam's moments, the library's workspaces
     torch.cuda.synchronize(dev)
     torch.cuda.empty_cache()
@@ -83,17 +83,16 @@ def step_peak(experiment: str, mode: str, batch: int, dev, log_dir: str) -> dict
 
 def memory_table(dev, card: str, log=print) -> list:
     """Every cell in every mode, with TF32 off and on; prints one line a
-    cell and returns the rows. Leaves ``allow_tf32`` as it found it."""
+    cell and returns the rows. Leaves both TF32 flags as it found them."""
     rows = []
-    tf32 = torch.backends.cudnn.allow_tf32
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     try:
         with tempfile.TemporaryDirectory(prefix="torch_memory_") as log_dir:
             for allow in (False, True):
-                torch.backends.cudnn.allow_tf32 = allow
                 for experiment, batch in CELLS:
                     plain = None
                     for mode in MODES:
-                        row = {**step_peak(experiment, mode, batch, dev, log_dir), "tf32": allow}
+                        row = {**step_peak(experiment, mode, batch, dev, log_dir, allow), "tf32": allow}
                         plain = plain or row["peak_bytes"]
                         row["saving_vs_plain"] = 1.0 - row["peak_bytes"] / plain
                         rows.append(row)
@@ -102,7 +101,7 @@ def memory_table(dev, card: str, log=print) -> list:
                             f"MiB, allocated between steps {row['base_bytes'] / MIB:6.1f} MiB), saving against "
                             f"plain {row['saving_vs_plain']:6.1%} | card: {card}")
     finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return rows
 
 

@@ -6,9 +6,10 @@
 // accumulation, bias and ReLU in the epilogue, the result rounded once to the
 // input's dtype. The wrapper (unet_zoo_tpu_torch/ops/pallas/conv_chain.py)
 // chains the stages, hands each launch weights already cast to the input
-// dtype and laid out as (C_out_pad, 3, 3, C_in_pad), zero-padded, and
-// computes the launch plan (K chunk, output channels and rows a block,
-// pipeline depth, shared memory, loader) that the bf16 launcher checks.
+// dtype and laid out as (C_out_pad, 3, 3, C_in_pad), zero-padded (in f32
+// twice: the tf32 hi and lo halves), and computes the launch plan (K chunk,
+// output channels and rows a block, pipeline depth, shared memory, loader)
+// that each launcher checks.
 //
 // What bounds it on an H100. Per output pixel a stage does 2*9*C_in*C_out
 // FLOPs and, at best, moves (C_in + C_out) activations through device memory.
@@ -84,8 +85,46 @@
 //   dlopen (no -lcuda), and passed as __grid_constant__ parameters.
 // * Small grids: the wrapper takes 4-row tiles (one consumer warpgroup) when
 //   8-row tiles give fewer blocks than the card has SMs.
-// The f32 path (conv3x3_f32_fma) is for parity only: CUDA-core FMA, 4 pixels
-// x 8 channels a thread, so f32 results keep full f32 precision (no TF32).
+//
+// The f32 design (conv3x3_f32_3xtf32_wgmma) replaces the same Pallas kernel
+// in float32 (unet_zoo_tpu/ops/pallas/conv_chain.py:132 with f32 inputs),
+// which the registered f32 experiments run (ProbUNet's 13 trunk blocks at
+// 128x128 down to 2x2, the U-Net's 7). What bounds it: f32 FMA outside the
+// tensor cores peaks at 67 TFLOP/s; TF32 on them at 494.7, but one TF32
+// product keeps ~11 bits. 3xTF32 splits each operand into hi = tf32(v) and
+// lo = tf32(v - hi) and sums lo*hi + hi*lo + hi*hi in f32 (lo*lo dropped):
+// ~2^-21 relative a product, f32-level, at a third of the TF32 rate, ~165
+// TFLOP/s: the operation floor. With C_in = C_out = C a stage does 2.25*C
+// FLOPs a byte moved in f32, 72 at C = 32 and 144 at 64 (the 128x128 and
+// 64x64 levels), against a ridge of ~49 at the 3xTF32 rate: there the
+// bytes come within 1.5-3x of the floor, and the C_in = 1 stage is bound
+// by them. The design:
+// * the bf16 kernel's pipeline (TMA halo and weight rings, warp-specialised,
+//   persistent), with k8 tf32 wgmmas over chunks of 8, 16 or 32 channels
+//   (32, 64 or 128-byte rows, the TMA swizzle of that width);
+// * B split once, at pack time, by the wrapper: a weight stage is the
+//   (chunk, tap) tile's hi then lo half, two TMA boxes of a 3-D map;
+// * A read with ldmatrix, which over f32 rows hands out the m64k8 tf32
+//   fragment as it hands out the bf16 one over bf16 rows, and split in
+//   registers (cvt.rna.tf32) into fresh registers per tap; the last tap of
+//   a chunk drains the wgmma pipeline before the registers are reused;
+// * small images: a tile of 64 rows a consumer warpgroup may hold several
+//   whole images (H x W < 64: 16 of 2x2, 4 of 4x4), their halos one TMA box
+//   (chunk, W + 2, H + 2, n_img) at (0, -1, -1, b0) whose zero fill pads
+//   every image; where tiles x output-channel blocks leave SMs idle, the
+//   plan takes one warpgroup a tile and then narrower channel blocks (down
+//   to 32), so that the 2x2-8x8 levels spread over 6-72 blocks in place of
+//   1-12 (no split of K: each block's K loop stays one pass);
+// * C_in % 4 != 0 (the first stage's C_in = 1) or an unaligned input takes
+//   the producer's plain loader (load_halo_plain_f32) into the same layout;
+// * the tensor cores' f32 accumulation drops low bits at each wgmma, so
+//   one accumulator over all of K drifted ~K * 1e-8 of max|out| (3.0e-5 at
+//   K = 3456, NVIDIA H100 80GB HBM3 at 700 W): each K chunk sums into a
+//   fresh accumulator that a rounded f32 add folds into the total, which
+//   costs a second set of accumulators: with two taps of split A registers
+//   they must fit the 168 registers a thread of a 288-thread block gets, so
+//   channel blocks stop at 96 (C_out 128 and 192 take two blocks), and a
+//   96-wide block takes 16-channel chunks.
 // What it leaves for later: stage fusion with per-tile halo recompute (each
 // stage's output round-trips device memory here), reading the up path's two
 // inputs without a concat, pool/resize folded into the loader, and a
@@ -545,79 +584,328 @@ __global__ void __launch_bounds__(288, BN <= 64 ? 2 : 1)
   }
 }
 
-// ---------------------------------------------------------------- f32, FMA
+// ---------------------------------------------------------------- f32, 3xTF32 + wgmma
 
-constexpr int TH_F32 = 8;
-constexpr int KC_F32 = 16;
-constexpr int HALO_PIX_F32 = (TH_F32 + 2) * HALO_W;
-constexpr int BN_F32 = 32;
-constexpr int LDS_F32 = KC_F32 + 1;  // odd stride: a warp's 8 pixel groups read 8 distinct banks
+// Where a tile lies: n_img images (folded, where whole images are smaller
+// than the tile) x tile_h rows x tile_w columns, padded to 64 rows a
+// consumer warpgroup.
+struct Geo {
+  int batch, height, width, ci, ci_pad, co;
+  int tile_h, tile_w, n_img;
+  int tiles_b, tiles_h, tiles_w;
+  int n_blocks;  // blocks of output channels a tile
+  int warps;     // consumer warps, 4 a warpgroup
+};
 
-// 128 threads; thread = 4 consecutive pixels of one tile row x 8 out channels.
-__global__ void __launch_bounds__(128)
-    conv3x3_f32_fma(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out, Shape s) {
-  __shared__ float sx[HALO_PIX_F32 * LDS_F32];                 // [halo pixel][channel]
-  __shared__ __align__(16) float sw[9 * KC_F32 * BN_F32];      // [tap][channel][out channel]
+struct Origin {
+  int b, h, w;
+};
 
-  const int tid = threadIdx.x;
-  const int cg = tid & 3;                                  // out channels 8*cg .. 8*cg+7
-  const int row = tid >> 4, col0 = ((tid >> 2) & 3) * 4;   // pixels (row, col0 .. col0+3)
-  const Tile tile = tile_of(s, blockIdx.x);
-  const int n0 = blockIdx.y * BN_F32;
+__device__ __forceinline__ Origin origin_of(const Geo& g, int t) {
+  Origin o;
+  o.w = (t % g.tiles_w) * g.tile_w;
+  t /= g.tiles_w;
+  o.h = (t % g.tiles_h) * g.tile_h;
+  o.b = t / g.tiles_h * g.n_img;
+  return o;
+}
 
-  float acc[4][8];
+// tf32 of v, rounded to nearest (ties away), in the low 13 bits zero
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma m64nNk8, tf32 in (K-major both, the only layout .tf32 has), f32
+// accumulate, A from registers (per warp rows g, g + 8 x k t, t + 4), B
+// from shared memory.
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<96> {
+  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// The plain loader of the f32 kernel: as load_halo_plain, over f32 pixels
+// of 4-channel 16-byte units and the folded tile's halo (n_img images of
+// (tile_h + 2) x (tile_w + 2) pixels), zeros outside the images, past the
+// batch and past C_in.
+template <int KC>
+__device__ void load_halo_plain_f32(const float* __restrict__ x, const Geo& g, uint8_t* dst, Origin o, int c0,
+                                    int lane) {
+  constexpr int VEC = KC / 4;  // 16-byte units a pixel
+  constexpr int BATCH = 4;
+  const int hw = g.tile_w + 2, plane = (g.tile_h + 2) * hw;
+  const int units = g.n_img * plane * VEC;
+  for (int i0 = lane; i0 < units; i0 += 32 * BATCH) {
+    float4 v[BATCH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < s.ci_pad; k0 += KC_F32) {
-    for (int i = tid; i < HALO_PIX_F32 * KC_F32; i += 128) {
-      const int p = i / KC_F32, c = k0 + i % KC_F32;
-      const int h = tile.h0 + p / HALO_W - 1, wc = tile.w0 + p % HALO_W - 1;
-      sx[p * LDS_F32 + i % KC_F32] =
-          in_image(s, h, wc) && c < s.ci ? x[pixel_index(s, tile.b, h, wc) * s.ci + c] : 0.f;
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + 32 * k, p = i / VEC, c = c0 + (i % VEC) * 4;
+      const int b = o.b + p / plane, h = o.h - 1 + p % plane / hw, w = o.w - 1 + p % hw;
+      const bool valid = i < units && b < g.batch && h >= 0 && h < g.height && w >= 0 && w < g.width && c < g.ci;
+      const float* src = x + (valid ? ((static_cast<int64_t>(b) * g.height + h) * g.width + w) * g.ci + c : 0);
+      v[k].x = valid ? src[0] : 0.f;
+      v[k].y = valid && c + 1 < g.ci ? src[1] : 0.f;
+      v[k].z = valid && c + 2 < g.ci ? src[2] : 0.f;
+      v[k].w = valid && c + 3 < g.ci ? src[3] : 0.f;
     }
-    for (int i = tid; i < 9 * KC_F32 * BN_F32; i += 128) {
-      const int k = i % KC_F32, r = i / KC_F32;  // r = n * 9 + tap
-      const int n = r / 9, tap = r % 9;
-      sw[(tap * KC_F32 + k) * BN_F32 + n] =
-          w[(static_cast<int64_t>(n0 + n) * 9 + tap) * s.ci_pad + k0 + k];
+#pragma unroll
+    for (int k = 0; k < BATCH; ++k) {
+      const int i = i0 + 32 * k;
+      if (i < units) *reinterpret_cast<float4*>(dst + swizzle<KC * 2>((i / VEC) * KC * 4 + (i % VEC) * 16)) = v[k];
     }
-    __syncthreads();
+  }
+}
 
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const float* xs = sx + ((row + dy) * HALO_W + col0 + dx) * LDS_F32;
-      const float* ws = sw + tap * KC_F32 * BN_F32 + cg * 8;
-#pragma unroll
-      for (int k = 0; k < KC_F32; ++k) {
-        float xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[i * LDS_F32 + k];
-        const float4 wa = *reinterpret_cast<const float4*>(ws + k * BN_F32);
-        const float4 wb = *reinterpret_cast<const float4*>(ws + k * BN_F32 + 4);
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
+// BN output channels a block, KC input channels (4 * KC bytes) a K chunk.
+// The pipeline is the bf16 kernel's (producer warp, halo and weight rings,
+// persistent items, resident weights where they fit); what differs:
+// * a weight stage holds the (chunk, tap) tile twice, hi then lo, split at
+//   pack time, both by TMA (a 3-D map whose outer axis picks the half);
+// * each consumer reads its A fragment with ldmatrix (an .x4 of b16 8x8
+//   matrices over f32 data is the m64k8 tf32 fragment), splits it into hi
+//   and lo in fresh registers, and issues lo*hi, hi*lo, hi*hi per k8 step;
+// * consumer warp w owns tile rows m = 16 w .. 16 w + 15, a row being a
+//   pixel of the folded tile (image, row, column); padding rows read pixel 0
+//   and are never stored.
+template <int BN, int KC>
+__global__ void __launch_bounds__(288, 1)
+    conv3x3_f32_3xtf32_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                             const float* __restrict__ x, const float* __restrict__ bias, float* __restrict__ out,
+                             Geo g, Pipe pipe) {
+  constexpr int KSTEPS = KC / 8;
+  constexpr int ROW = KC * 4;           // bytes a halo pixel and a weight row
+  constexpr int SW = KC * 2;            // the bf16 chunk of the same row width (swizzle, descriptor)
+  constexpr uint32_t HALF = BN * ROW;   // the lo tile, behind the hi tile of a weight stage
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;  // barriers in the first 1024 bytes, then the rings
+  const uint32_t halo0 = base + 1024;
+  const uint32_t weight0 = halo0 + pipe.halo_stages * pipe.halo_stride;
+  const int hs_n = pipe.halo_stages, ws_n = pipe.weight_stages;
+  auto halo_full = [&](int i) { return base + 8 * i; };
+  auto halo_empty = [&](int i) { return base + 8 * (hs_n + i); };
+  auto weight_full = [&](int i) { return base + 8 * (2 * hs_n + i); };
+  auto weight_empty = [&](int i) { return base + 8 * (2 * hs_n + ws_n + i); };
+
+  const int tid = threadIdx.x, warp = __shfl_sync(0xffffffffu, tid >> 5, 0), lane = tid & 31;
+  const int consumer_threads = 32 * g.warps;
+  if (tid == 0) {
+    for (int i = 0; i < hs_n; ++i) {
+      mbar_init(halo_full(i), pipe.tma ? 1 : 32);
+      mbar_init(halo_empty(i), consumer_threads);
+    }
+    for (int i = 0; i < ws_n; ++i) {
+      mbar_init(weight_full(i), 1);
+      mbar_init(weight_empty(i), consumer_threads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int chunks = g.ci_pad / KC;
+  const int items = g.tiles_b * g.tiles_h * g.tiles_w * g.n_blocks;
+  const int hw = g.tile_w + 2;
+
+  if (warp == g.warps) {
+    // producer warp: per item and chunk, the halo, then the chunk's 9 weight stages
+    int hs = 0, hph = 0, ws = 0, wph = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const Origin o = origin_of(g, item / g.n_blocks);
+      const int n0 = item % g.n_blocks * BN;
+      const bool load_weights = !pipe.resident || item == static_cast<int>(blockIdx.x);
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        mbar_wait(halo_empty(hs), hph ^ 1);
+        const uint32_t halo = halo0 + hs * pipe.halo_stride;
+        if (pipe.tma) {
+          if (lane == 0) {
+            mbar_expect_tx(halo_full(hs), pipe.halo_bytes);
+            tma_load_4d(halo, &x_map, halo_full(hs), chunk * KC, o.w - 1, o.h - 1, o.b);
+          }
+        } else {
+          load_halo_plain_f32<KC>(x, g, smem_raw + (halo - raw), o, chunk * KC, lane);
+          mbar_arrive(halo_full(hs));
+        }
+        if (++hs == hs_n) hs = 0, hph ^= 1;
+        if (!load_weights) continue;
+        for (int tap = 0; tap < 9; ++tap) {
+          if (!pipe.resident) mbar_wait(weight_empty(ws), wph ^ 1);
+          if (lane == 0) {
+            const uint32_t dst = weight0 + ws * pipe.weight_bytes;
+            const int k0 = tap * g.ci_pad + chunk * KC;
+            mbar_expect_tx(weight_full(ws), pipe.weight_bytes);
+            tma_load_3d(dst, &w_map, weight_full(ws), k0, n0, 0);
+            tma_load_3d(dst + HALF, &w_map, weight_full(ws), k0, n0, 1);
+          }
+          if (++ws == ws_n) ws = 0, wph ^= 1;
+        }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  const int h = tile.h0 + row;
+  // consumers. The pixel whose halo row this lane hands ldmatrix: tile row
+  // m = 16 warp + (lane & 15); lanes 16-31 give its k + 4 half
+  const int tile_pixels = g.n_img * g.tile_h * g.tile_w, per_img = g.tile_h * g.tile_w;
+  int m = 16 * warp + (lane & 15);
+  if (m >= tile_pixels) m = 0;
+  const uint32_t lane_off =
+      (((m / per_img) * (g.tile_h + 2) + m % per_img / g.tile_w) * hw + m % g.tile_w) * ROW + (lane >> 4) * 16;
+  const int gq = lane >> 2, t = lane & 3;
+  int hs = 0, hph = 0, ws = 0, wph = 0, prev_ws = -1;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Origin o = origin_of(g, item / g.n_blocks);
+    const int n0 = item % g.n_blocks * BN;
+    // each chunk sums into acc from zero, and acc into total with a rounded
+    // f32 add: the tensor cores' own accumulation loses low bits (~K * 1e-8
+    // of max|out| over one chain of K = 3456, against ~1e-6 for the chunk's)
+    float acc[BN / 2], total[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int wc = tile.w0 + col0 + i;
-    if (!in_image(s, h, wc)) continue;
-    float* dst = out + pixel_index(s, tile.b, h, wc) * s.co;
+    for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
+    for (int chunk = 0; chunk < chunks; ++chunk) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + cg * 8 + j;
-      if (n < s.co) dst[n] = fmaxf(acc[i][j] + bias[n], 0.f);
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      mbar_wait(halo_full(hs), hph);
+      const uint32_t halo = halo0 + hs * pipe.halo_stride;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint32_t pix = lane_off + ((tap / 3) * hw + tap % 3) * ROW;
+        // A and its split, in registers that no wgmma in flight has read:
+        // the last tap of a chunk drains the pipeline before the next pass
+        uint32_t hi[KSTEPS][4], lo[KSTEPS][4];
+#pragma unroll
+        for (int k = 0; k < KSTEPS; ++k) {
+          uint32_t a[4];
+          ldmatrix_x4(a, halo + swizzle<SW>(pix + k * 32));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = __uint_as_float(a[i]);
+            hi[k][i] = to_tf32(v);
+            lo[k][i] = to_tf32(v - __uint_as_float(hi[k][i]));
+          }
+        }
+        const int stage = pipe.resident ? chunk * 9 + tap : ws;
+        mbar_wait(weight_full(stage), pipe.resident ? 0 : wph);
+        wgmma_fence();
+        const uint32_t w_hi = weight0 + stage * pipe.weight_bytes;
+        const uint64_t d_hi = weight_desc<SW>(w_hi), d_lo = weight_desc<SW>(w_hi + HALF);
+        // the small products first: lo*hi, hi*lo, then hi*hi (+32 bytes a k8 step)
+#pragma unroll
+        for (int k = 0; k < KSTEPS; ++k) {
+          WgmmaTf32<BN>::mma(acc, lo[k], d_hi + 2 * k);
+          WgmmaTf32<BN>::mma(acc, hi[k], d_lo + 2 * k);
+          WgmmaTf32<BN>::mma(acc, hi[k], d_hi + 2 * k);
+        }
+        wgmma_commit();
+        // as in the bf16 kernel: release the previous tap's weight stage
+        // once its group is done; the last tap drains the pipeline and only
+        // then releases the halo stage its ldmatrix read
+        if (tap < 8) {
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+          mbar_arrive(halo_empty(hs));
+        }
+        if (!pipe.resident) {
+          if (prev_ws >= 0) mbar_arrive(weight_empty(prev_ws));
+          prev_ws = tap < 8 ? ws : -1;
+          if (tap == 8) mbar_arrive(weight_empty(ws));
+          if (++ws == ws_n) ws = 0, wph ^= 1;
+        }
+      }
+      if (++hs == hs_n) hs = 0, hph ^= 1;
+      // the chunk's wgmmas are done (its last tap waited on them): no read
+      // of acc may move above that wait
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        asm volatile("" : "+f"(acc[i])::"memory");
+        total[i] += acc[i];
+      }
+    }
+
+    // epilogue: f32 bias, ReLU, f32 stores of channel pairs (8 bytes, a lane
+    // quad 32 contiguous bytes). Accumulators 4 nb .. 4 nb + 3 hold n8 block
+    // nb: rows gq (the first two) and gq + 8, channels 8 nb + 2t, +1.
+    const bool pairs = g.co % 2 == 0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int mm = 16 * warp + gq + 8 * half;
+      const int b = o.b + mm / per_img, h = o.h + mm % per_img / g.tile_w, w = o.w + mm % g.tile_w;
+      if (mm >= tile_pixels || b >= g.batch || h >= g.height || w >= g.width) continue;
+      float* dst = out + ((static_cast<int64_t>(b) * g.height + h) * g.width + w) * g.co;
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb) {
+        const int n = n0 + 8 * nb + 2 * t, i = 4 * nb + 2 * half;
+        const float v0 = fmaxf(total[i] + (n < g.co ? bias[n] : 0.f), 0.f);
+        const float v1 = fmaxf(total[i + 1] + (n + 1 < g.co ? bias[n + 1] : 0.f), 0.f);
+        if (pairs) {
+          if (n < g.co) *reinterpret_cast<float2*>(dst + n) = make_float2(v0, v1);
+        } else {
+          if (n < g.co) dst[n] = v0;
+          if (n + 1 < g.co) dst[n + 1] = v1;
+        }
+      }
     }
   }
 }
@@ -648,23 +936,21 @@ CUtensorMapSwizzle swizzle_of(int chunk) {
 
 int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-// Launches the persistent grid: as many blocks as are resident at once on
-// the device's SMs, at most one a work item.
-template <int BN, int KC>
-int launch_bf16(const CUtensorMap& xm, const CUtensorMap& wm, const uint16_t* x, const float* bias,
-                __nv_bfloat16* out, const Shape& s, const Pipe& pipe, long long items, int smem, int device,
-                cudaStream_t st) {
-  auto kernel = conv3x3_bf16_wgmma<BN, KC>;
-  const int threads = 32 * s.tile_h + 32;
-  // resident blocks on the whole device, cached by (device, threads, shared memory): the
-  // occupancy query costs more host time than the launch itself. A key's first launch
-  // also opens the kernel up to all of a block's shared memory on that device.
+// The persistent grid of `kernel`: as many blocks as are resident at once
+// on the device's SMs, at most one a work item; 0 or an error code. The
+// residency is cached by (kernel, device, threads, shared memory): the
+// occupancy query costs more host time than the launch itself. A key's
+// first use also opens the kernel up to all of a block's shared memory on
+// that device.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int device, int threads, int smem, long long items, unsigned* grid) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, long long> resident_blocks;
+  static std::map<std::tuple<const void*, int, int, int>, long long> resident_blocks;
+  const auto key = std::make_tuple(reinterpret_cast<const void*>(kernel), device, threads, smem);
   long long resident;
   {
     std::lock_guard<std::mutex> lock(mu);
-    auto it = resident_blocks.find({device, threads, smem});
+    auto it = resident_blocks.find(key);
     if (it == resident_blocks.end()) {
       int per_sm = 0, sms = 0;
       cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -672,12 +958,23 @@ int launch_bf16(const CUtensorMap& xm, const CUtensorMap& wm, const uint16_t* x,
       if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
       if (err != cudaSuccess) return static_cast<int>(err);
       if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-      it = resident_blocks.emplace(std::make_tuple(device, threads, smem), static_cast<long long>(per_sm) * sms).first;
+      it = resident_blocks.emplace(key, static_cast<long long>(per_sm) * sms).first;
     }
     resident = it->second;
   }
-  const long long grid = items < resident ? items : resident;
-  kernel<<<static_cast<unsigned>(grid), threads, smem, st>>>(xm, wm, x, bias, out, s, pipe);
+  *grid = static_cast<unsigned>(items < resident ? items : resident);
+  return 0;
+}
+
+template <int BN, int KC>
+int launch_bf16(const CUtensorMap& xm, const CUtensorMap& wm, const uint16_t* x, const float* bias,
+                __nv_bfloat16* out, const Shape& s, const Pipe& pipe, long long items, int smem, int device,
+                cudaStream_t st) {
+  auto kernel = conv3x3_bf16_wgmma<BN, KC>;
+  const int threads = 32 * s.tile_h + 32;
+  unsigned grid = 0;
+  if (const int err = persistent_grid(kernel, device, threads, smem, items, &grid)) return err;
+  kernel<<<grid, threads, smem, st>>>(xm, wm, x, bias, out, s, pipe);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -690,6 +987,32 @@ int dispatch_n(int block_n, const CUtensorMap& xm, const CUtensorMap& wm, const 
     case 64: return launch_bf16<64, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
     case 128: return launch_bf16<128, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
     case 192: return launch_bf16<192, KC>(xm, wm, x, bias, out, s, pipe, items, smem, device, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+template <int BN, int KC>
+int launch_f32(const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* bias, float* out,
+               const Geo& g, const Pipe& pipe, long long items, int smem, int device, cudaStream_t st) {
+  auto kernel = conv3x3_f32_3xtf32_wgmma<BN, KC>;
+  const int threads = 32 * g.warps + 32;
+  unsigned grid = 0;
+  if (const int err = persistent_grid(kernel, device, threads, smem, items, &grid)) return err;
+  kernel<<<grid, threads, smem, st>>>(xm, wm, x, bias, out, g, pipe);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int dispatch_n_f32(int block_n, const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* bias,
+                   float* out, const Geo& g, const Pipe& pipe, long long items, int smem, int device,
+                   cudaStream_t st) {
+  switch (block_n) {
+    case 32: return launch_f32<32, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
+    case 64: return launch_f32<64, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
+    case 96:  // at most 16-channel chunks: see f32_launch_plan
+      if constexpr (KC <= 16) return launch_f32<96, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -764,23 +1087,77 @@ extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w, const void* 
   }
 }
 
-// One f32 stage, as above in float32; w is (co_pad >= co rounded up to 32,
-// 3, 3, ci_pad) with ci_pad a multiple of 16.
+// One f32 stage: out = relu(conv3x3(x, w) + bias) in float32 to f32-level
+// accuracy (3xTF32). x (batch, height, width, ci) and out (batch, height,
+// width, co) are contiguous NHWC float32; w is (2, co_pad, 3, 3, ci_pad)
+// float32, the kernel's tf32 hi and lo halves, zero past co and ci; bias
+// is float32 (co,). The plan (chunk, block_n, tile_h, tile_w, n_img, warps,
+// halo_stages, weight_stages, smem_bytes, tma, resident) comes from the
+// wrapper's f32_launch_plan and is checked here. Returns as the bf16 entry.
 extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* bias, void* out, int batch,
-                                     int height, int width, int ci, int ci_pad, int co, int device,
+                                     int height, int width, int ci, int ci_pad, int co, int co_pad, int chunk,
+                                     int block_n, int tile_h, int tile_w, int n_img, int warps, int halo_stages,
+                                     int weight_stages, int smem_bytes, int tma, int resident, int device,
                                      void* stream) {
-  if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || ci_pad < ci || ci_pad % KC_F32 != 0)
+  const bool chunk_ok = chunk == 8 || chunk == 16 || chunk == 32;
+  const bool n_ok = block_n == 32 || block_n == 64 || block_n == 96;
+  if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || !chunk_ok || !n_ok || ci_pad < ci ||
+      ci_pad % chunk != 0 || co_pad < co || (warps != 4 && warps != 8) || tile_h < 1 || tile_w < 1 || n_img < 1 ||
+      tile_w + 2 > 256 || tile_h + 2 > 256 || n_img > 256 || n_img * tile_h * tile_w > 16 * warps ||
+      halo_stages < 1 || halo_stages > HALO_STAGES_MAX || weight_stages < 2 || weight_stages > WEIGHT_STAGES_MAX ||
+      (tma && (ci % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int halo_bytes = n_img * (tile_h + 2) * (tile_w + 2) * chunk * 4;
+  const Pipe pipe{halo_stages, weight_stages, halo_bytes, round_up(halo_bytes, 1024), 2 * block_n * chunk * 4, tma,
+                  resident};
+  const int n_blocks = (co + block_n - 1) / block_n;
+  if (smem_bytes != 2048 + halo_stages * pipe.halo_stride + weight_stages * pipe.weight_bytes ||
+      smem_bytes > SMEM_LIMIT || (resident && (weight_stages != 9 * ci_pad / chunk || n_blocks != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geo g{batch, height, width, ci, ci_pad, co, tile_h, tile_w, n_img, (batch + n_img - 1) / n_img,
+              (height + tile_h - 1) / tile_h, (width + tile_w - 1) / tile_w, n_blocks, warps};
+  const long long items = static_cast<long long>(g.tiles_b) * g.tiles_h * g.tiles_w * n_blocks;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Shape s{batch, height, width, ci, ci_pad, co, TH_F32, (height + TH_F32 - 1) / TH_F32, (width + TW - 1) / TW,
-                (co + BN_F32 - 1) / BN_F32};
-  const long long blocks = static_cast<long long>(batch) * s.tiles_h * s.tiles_w;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  conv3x3_f32_fma<<<dim3(static_cast<unsigned>(blocks), (co + BN_F32 - 1) / BN_F32), 128, 0,
-                    static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x), static_cast<const float*>(w),
-                                                          static_cast<const float*>(bias), static_cast<float*>(out), s);
-  return static_cast<int>(cudaGetLastError());
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ERR_NO_LIBCUDA;
+  CUtensorMap xm{}, wm{};
+  const CUtensorMapSwizzle swz = swizzle_of(chunk * 2);  // the swizzle of 4 * chunk-byte rows
+  if (tma) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ci), static_cast<cuuint64_t>(width),
+                                static_cast<cuuint64_t>(height), static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ci) * 4, static_cast<cuuint64_t>(ci) * 4 * width,
+                                   static_cast<cuuint64_t>(ci) * 4 * width * height};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(tile_w + 2),
+                               static_cast<cuuint32_t>(tile_h + 2), static_cast<cuuint32_t>(n_img)};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    const CUresult r = encode(&xm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(x), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  }
+  {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(9) * ci_pad, static_cast<cuuint64_t>(co_pad), 2};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(9) * ci_pad * 4,
+                                   static_cast<cuuint64_t>(9) * ci_pad * 4 * co_pad};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(block_n), 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    const CUresult r = encode(&wm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(w), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return ERR_ENCODE + static_cast<int>(r);
+  }
+  const auto* xf = static_cast<const float*>(x);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* of = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (chunk) {
+    case 8: return dispatch_n_f32<8>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
+    case 16: return dispatch_n_f32<16>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
+    default: return dispatch_n_f32<32>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
+  }
 }
 
 extern "C" const char* conv_chain_error_string(int code) {

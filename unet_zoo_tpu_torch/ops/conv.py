@@ -44,12 +44,12 @@ MEMORY_MODES = ("plain", "remat", "reversible")
 def chain_route(dtype: torch.dtype, device) -> str:
     """What ``ConvSeq(norm=False)`` runs a chain of ``dtype`` on ``device``
     with: the hand-written kernel on CUDA, "conv3x3_bf16_wgmma" for bf16 or
-    "conv3x3_f32_fma" for float32 (CUDA-core FMA, full f32 precision;
-    ``tools/torch_f32_route.py`` times it against cuDNN), or "plain", the
-    chain's plain version, on the CPU."""
+    "conv3x3_f32_3xtf32_wgmma" for float32 (3xTF32 on the tensor cores,
+    f32-level error; ``tools/torch_f32_route.py`` times it against cuDNN),
+    or "plain", the chain's plain version, on the CPU."""
     if torch.device(device).type != "cuda":
         return "plain"
-    return "conv3x3_f32_fma" if dtype == torch.float32 else "conv3x3_bf16_wgmma"
+    return "conv3x3_f32_3xtf32_wgmma" if dtype == torch.float32 else "conv3x3_bf16_wgmma"
 
 
 def _recompute_contexts():

@@ -91,7 +91,8 @@ def adam_coupled_l2(params, lr: float, weight_decay: float = 0.0, b1: float = 0.
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None, seed: Optional[int] = None,
-                 sys_config: Optional[SystemConfig] = None, log_dir: Optional[str] = None, tensorboard: bool = True):
+                 sys_config: Optional[SystemConfig] = None, log_dir: Optional[str] = None, tensorboard: bool = True,
+                 tf32: bool = False):
         """Builds the model (weights drawn on the CPU from a generator
         seeded from ``seed``, default ``cfg.seed``, then moved to
         ``device``, by default the CUDA card), the optimizer and the train
@@ -99,7 +100,15 @@ class Trainer:
         the log directory (default ``log_root/log_dir_name/experiment_name``
         of ``sys_config``) with its train and validation metrics streams,
         and loads ``cfg.pretrained_model`` from it where that file exists.
-        Raises where no card is present and ``device`` is not given."""
+        Raises where no card is present and ``device`` is not given.
+
+        Sets the process's float32 precision: with ``tf32`` False (the
+        default) cuDNN convolutions and float32 matmuls run in float32, not
+        TF32 (PyTorch's default lets cuDNN take TF32, ~1e-3 of max|ref| off
+        on the U-Net, beyond the 1e-4 the card's f32 parity checks hold): a
+        float32 experiment then computes what the CPU and the tests compute,
+        and a bf16 one keeps its float32 parts (BatchNorm statistics, losses,
+        metrics) in float32. Both flags are logged beside the chain route."""
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -115,8 +124,10 @@ class Trainer:
         # the BN-free conv chains (the U-Net's plain and remat blocks): the
         # hand-written kernel of the compute dtype, or the CPU's plain version
         self.chain_route = chain_route(model_kwargs["dtype"] or torch.float32, self.device)
-        log.info("%s: %s, memory mode %s, %s compute on %s; BN-free conv chains run on: %s", cfg.experiment_name,
-                 cfg.model, cfg.effective_reversible_mode, cfg.dtype, self.device, self.chain_route)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = self.tf32 = tf32
+        log.info("%s: %s, memory mode %s, %s compute on %s; BN-free conv chains run on: %s; TF32 in cuDNN "
+                 "convolutions and float32 matmuls: %s", cfg.experiment_name, cfg.model, cfg.effective_reversible_mode,
+                 cfg.dtype, self.device, self.chain_route, "on" if tf32 else "off")
         self.state = TrainState(
             model=model,
             optimizer=adam_coupled_l2(model.parameters(), cfg.learning_rate, cfg.weight_decay),
