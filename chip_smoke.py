@@ -137,7 +137,28 @@ Phases, each printing its own lines:
    f32, with the host's issue time; (e) ``eval_image`` of one image with 100 samples (78
    launches); (f) PROB_STEPS bf16 steps of ``prob_unet_reversible`` (no
    launch) with its evaluation; (g) ``train``/``validate``/``test`` on the
-   synthetic LIDC data of phase 7.
+   synthetic LIDC data of phase 7;
+10. PHiSeg3D and the BraTS path (``phiseg_brats``: filters 32/64/128, 2
+   latent levels, 128^3x4, 3 one-hot WT/TC/ET classes, reversible with one
+   coupling block a sequence), which launches no hand-written kernel (every
+   sequence carries BatchNorm or is reversible; a BN-free 3D sequence raises
+   on every device): (a) the architecture at BRATS_PARITY_SIZE, batch 1, float32
+   with TF32 off, plain and reversible, the same weights and z noise on the
+   card and the CPU, eval and train mode, at phase 9 (a)'s gates; (b) the
+   registered step (float32, reversible, 128^3, batch 1, 3D augmentation with
+   the elastic field) for BRATS_STEPS steps on synthetic arrays from a seed:
+   a gradient in every parameter (an exact zero in each bias that BatchNorm
+   follows), no host sync inside a step, running statistics that move, a
+   finite loss; then ms a step (events), the host's issue time, the phases
+   and the peak MiB above what the card held before that step's trainer was
+   built, and the same for the plain mode and for bf16; (c) the
+   evaluation on BRATS_VAL_VOLUMES volumes: ``sample(x, 16)`` whole and in
+   chunks of ``trainer.VOLUME_SAMPLE_CHUNK`` (ms, peak MiB), ``validate``
+   (``validate_brats``, 16 samples, s a volume and the peak MiB, its
+   checkpoints), ``test`` (``test_brats``, 1 repeat, the npz schema) and
+   ``export_predictions``, whose ``.nii.gz`` files read back through the
+   port's ``load_nii`` in the original geometry with labels in {0, 1, 2, 4},
+   and HD95's host time for one region at 128^3.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -383,6 +404,15 @@ SLEEP_CYCLES = 40_000_000
 REG_GRAD_RTOL = 1e-5
 # what ``ops.conv.chain_route`` names the float32 kernel on a card
 F32_ROUTE = "conv3x3_f32_3xtf32_wgmma"
+
+# phase 10: PHiSeg3D and BraTS
+BRATS_EXPERIMENT = "phiseg_brats"
+BRATS_PARITY_SIZE = (32, 32, 32)  # phase 10 (a): the card against the CPU at a cut volume
+BRATS_STEPS = 3
+BRATS_TIME_STEPS = 2  # steps a timed round of ``step_times``
+BRATS_VAL_VOLUMES = 2
+BRATS_SAMPLES = 16  # the registered validation_samples
+MIB = 2 ** 20
 
 
 def log(msg: str) -> None:
@@ -2056,6 +2086,225 @@ def prob_unet_phase(conv_chain, dev, card: str, log_root: str) -> dict:
             "rev": rev, "rev_eval": rev_eval, "harness": harnessed}
 
 
+def brats_volumes(size, n_train: int, n_val: int):
+    """Synthetic BraTS arrays (``data.synthetic.brats_arrays``, crop offsets
+    included) from a fixed seed, and the train volumes as device batches
+    of one with their one-hot WT/TC/ET labels."""
+    from unet_zoo_tpu_torch.data import synthetic
+    from unet_zoo_tpu_torch.data.brats import to_evaluation_onehot
+
+    arrays = synthetic.brats_arrays((n_train, n_val), size, seed=0, keep_offsets=True)
+    xs = [torch.from_numpy(arrays["images_train"][i:i + 1]) for i in range(n_train)]
+    ys = [torch.from_numpy(to_evaluation_onehot(arrays["masks_train"][i:i + 1])) for i in range(n_train)]
+    return arrays, xs, ys
+
+
+def brats_parity(conv_chain, dev) -> dict:
+    """Phase 10 (a): ``phiseg_brats``'s architecture at BRATS_PARITY_SIZE,
+    batch 1, float32 with TF32 off, plain and reversible: the same weights
+    and z noise on the card and the CPU, eval mode (outputs, loss terms,
+    each gradient tensor's relative L2) and train mode (outputs, loss terms,
+    the whole gradient, running statistics), at phase 9 (a)'s gates; no
+    conv-chain launch, and a BN-free 3D conv sequence raises on the card."""
+    from unet_zoo_tpu_torch import ops
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.models.registry import get_model
+
+    seq = ops.ConvSeq(4, 8, 2, ndim=3, device=dev)
+    try:
+        seq(torch.zeros((1, 4, 4, 4, 4), device=dev))
+        raise AssertionError("a BN-free 3D conv sequence ran on the card")
+    except NotImplementedError as e:
+        log(f"[brats] a BN-free 3D conv sequence on the card raises: {e}")
+    _, xs, ys = brats_volumes(BRATS_PARITY_SIZE, 1, 0)
+    x, y = xs[0], ys[0]
+    result = {}
+    for mode in ("plain", "reversible"):
+        cfg = dataclasses.replace(get_experiment(BRATS_EXPERIMENT), image_size=BRATS_PARITY_SIZE, reversible_mode=mode)
+        models = {d: get_model(cfg.model, **cfg.model_kwargs(), device=d, generator=torch.Generator().manual_seed(5))
+                  for d in ("cpu", dev)}
+        gen = torch.Generator().manual_seed(6)
+        eps = {kind: [torch.randn((1, *[s >> (lvl + 1) for s in BRATS_PARITY_SIZE], cfg.zdim), generator=gen)
+                      for lvl in range(cfg.latent_levels)] for kind in ("post", "prior")}
+        for train in (False, True):
+            phase = "train" if train else "eval"
+            models[dev].load_state_dict(models["cpu"].state_dict())  # the same running statistics
+            runs = {"cpu": phiseg_run(models["cpu"], x, y, eps["post"], eps["prior"], train)}
+            torch.cuda.synchronize()
+            conv_chain.launches = 0
+            to = (lambda t: t.to(dev))  # noqa: E731
+            runs[dev] = phiseg_run(models[dev], to(x), to(y), [to(e) for e in eps["post"]],
+                                   [to(e) for e in eps["prior"]], train)
+            torch.cuda.synchronize()
+            check(conv_chain.launches == 0, f"PHiSeg3D launched the conv-chain kernel {conv_chain.launches} times")
+            (out_c, aux_c, g_c), (out_g, aux_g, g_g) = runs["cpu"], runs[dev]
+            of_max = PHISEG_TRAIN_OF_MAX if train else PHISEG_EVAL_OF_MAX
+            out_err = max((a.detach().cpu() - b.detach()).abs().max().item() / b.detach().abs().max().item()
+                          for key in ("s_list", "post_mu", "post_sigma", "prior_mu", "prior_sigma")
+                          for a, b in zip(out_g[key], out_c[key]))
+            check(out_err <= of_max, f"PHiSeg3D {mode} f32 {phase} outputs: {out_err:.3e} of max|ref| > {of_max}")
+            loss_err = max(abs(aux_g[k].item() - aux_c[k].item()) / abs(aux_c[k].item())
+                           for k in ("loss", "kl", "recon"))
+            check(loss_err <= PHISEG_LOSS_RTOL, f"PHiSeg3D {mode} f32 {phase} loss terms: rel diff {loss_err:.3e}")
+            missing = [n for n in g_c if g_c[n] is None or g_g[n] is None]
+            check(not missing, f"PHiSeg3D {mode} f32 {phase}: no gradient in {missing}")
+            flat = {d: torch.cat([g[n].detach().cpu().flatten() for n in g_c]) for d, g in (("cpu", g_c), (dev, g_g))}
+            l2 = ((flat[dev] - flat["cpu"]).norm() / flat["cpu"].norm()).item()
+            check(l2 <= PHISEG_TRAIN_GRAD_L2, f"PHiSeg3D {mode} f32 {phase} gradient: rel L2 {l2:.3e}")
+            tensor_l2, worst = max((((g_g[n].cpu() - g_c[n]).norm() / g_c[n].norm()).item(), n)
+                                   for n in g_c if g_c[n].any())
+            tol = f"tol L2 {PHISEG_TRAIN_GRAD_L2}"
+            if not train:
+                check(tensor_l2 <= PROB_EVAL_TENSOR_L2, f"PHiSeg3D {mode} eval gradient {worst}: rel L2 {tensor_l2:.3e}")
+                tol += f", each tensor's {PROB_EVAL_TENSOR_L2}"
+            else:
+                gpu_buffers = dict(models[dev].named_buffers())
+                stats_err = max(((gpu_buffers[n].cpu() - b).abs().max() / b.abs().max()).item()
+                                for n, b in models["cpu"].named_buffers())
+                check(stats_err <= PHISEG_STATS_RTOL, f"PHiSeg3D {mode} running statistics: rel diff {stats_err:.3e}")
+                tol += f"; running statistics rel {stats_err:.3e}, tol {PHISEG_STATS_RTOL}"
+            log(f"[brats] {BRATS_EXPERIMENT} {mode} f32 {phase} mode at {BRATS_PARITY_SIZE}, batch 1, card vs CPU, "
+                f"{len(g_c)} gradients: outputs {out_err:.3e} of max|ref| (tol {of_max}), loss/kl/recon rel "
+                f"{loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), whole gradient rel L2 {l2:.3e} ({tol}); worst tensor "
+                f"{worst} rel L2 {tensor_l2:.3e}")
+            result[f"{mode}_{phase}"] = {"outputs_of_max": out_err, "loss_rel": loss_err, "grad_rel_l2": l2,
+                                         "worst_tensor_rel_l2": tensor_l2}
+        del models
+    return result
+
+
+def brats_step(dev, card: str, log_dir: str, xs, ys, label: str, **changes) -> dict:
+    """One ``phiseg_brats`` Trainer (as registered, with ``changes``): a
+    warm-up step, then ``step_times`` over BRATS_TIME_STEPS steps; ms a step
+    (events), the host's issue ms, the phases and the peak MiB over them
+    above what the card held before this trainer was built (its weights,
+    Adam's moments and the step's own memory; not the phase's other state)."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment(BRATS_EXPERIMENT), **changes)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tensorboard=False)
+    x, y = xs[0], ys[0]
+    loss = trainer.train_step(x, y)["loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = step_times(trainer, x, y, BRATS_TIME_STEPS)
+    t["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    check(bool(torch.isfinite(loss)), f"{label}: non-finite loss {loss.item()}")
+    phases = t["phases_ms"]
+    log(f"[time] {label} train step bs1 128^3 with 3D augmentation: {t['ms']:.3f} ms, host issue {t['host_ms']:.3f} "
+        f"ms (median {t['host_median_ms']:.3f}), peak {t['peak_mib']:.1f} MiB above the card's other state; phases, ms/step: augmentation "
+        f"{phases[0]:.3f}, forward+loss {phases[1]:.3f}, backward {phases[2]:.3f}, optimizer+plateau "
+        f"{phases[3]:.3f} | card: {card}")
+    trainer.close()
+    return t
+
+
+def brats_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 10: PHiSeg3D and the BraTS path (parity, the registered step and
+    its variants, validation, test and the NIfTI export)."""
+    from unet_zoo_tpu_torch.data import BratsData
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.metrics import hd95
+    from unet_zoo_tpu_torch.training import Trainer
+    from unet_zoo_tpu_torch.training.trainer import VOLUME_SAMPLE_CHUNK
+    from unet_zoo_tpu_torch.utils import load_nii
+
+    t0 = time.perf_counter()
+    parity = brats_parity(conv_chain, dev)
+    torch.cuda.empty_cache()
+
+    # (b) the registered step: f32, reversible, 128^3, batch 1, 3D augmentation with the elastic field
+    size = (IMAGE,) * 3
+    arrays, xs, ys = brats_volumes(size, BRATS_STEPS, BRATS_VAL_VOLUMES)
+    xs, ys = [t.to(dev) for t in xs], [t.to(dev) for t in ys]
+    log_dir = os.path.join(log_root, "brats")
+    cfg = get_experiment(BRATS_EXPERIMENT)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    model = trainer.state.model
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    zero_bias_gates(model, before, cfg, f"{BRATS_EXPERIMENT} f32")
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
+    for i in range(1, BRATS_STEPS):
+        losses.append(trainer.train_step(xs[i], ys[i])["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(conv_chain.launches == 0, f"the PHiSeg3D step launched the conv-chain kernel {conv_chain.launches} times")
+    same = [n for n, b in model.named_buffers() if torch.equal(b, stats0[n])]
+    check(not same, f"running statistics that did not change: {same}")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses.tolist()}")
+    log(f"[brats] {BRATS_STEPS} registered steps ({cfg.dtype}, {cfg.effective_reversible_mode}, bs1 128^3x4, 3D "
+        f"augmentation with the elastic field): no host sync inside a step, 0 conv-chain launches, "
+        f"{len(stats0)} running statistics all changed; losses {' '.join(f'{v:.1f}' for v in losses.tolist())}")
+    steps = {"registered": brats_step(dev, card, log_dir, xs, ys, f"{BRATS_EXPERIMENT} f32 reversible"),
+             "plain": brats_step(dev, card, log_dir, xs, ys, f"{BRATS_EXPERIMENT} f32 plain", reversible_mode="plain"),
+             "bf16": brats_step(dev, card, log_dir, xs, ys, f"{BRATS_EXPERIMENT} bf16 reversible", dtype="bfloat16")}
+    torch.cuda.empty_cache()
+
+    # (c) evaluation on the registered trainer: the sample fold, validate, test and the export
+    x = xs[0]
+    folds = {}
+    with torch.inference_mode():
+        for chunk in (None, VOLUME_SAMPLE_CHUNK):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            ms = min(cuda_ms(lambda: model.sample(x, BRATS_SAMPLES, chunk=chunk), 1) for _ in range(2))
+            folds[chunk or BRATS_SAMPLES] = {"ms": ms, "peak_mib": (torch.cuda.max_memory_allocated(dev) - base) / MIB}
+            log(f"[brats] sample(x, {BRATS_SAMPLES}) at 128^3 f32, {chunk or BRATS_SAMPLES} samples decoded at a time: "
+                f"{ms:.1f} ms, peak {folds[chunk or BRATS_SAMPLES]['peak_mib']:.1f} MiB above the state | card: {card}")
+    data = BratsData(arrays, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t1 = time.perf_counter()
+    agg = trainer.validate(data)
+    val_s = (time.perf_counter() - t1) / BRATS_VAL_VOLUMES
+    val_peak = torch.cuda.max_memory_allocated(dev) / MIB
+    check(all(math.isfinite(agg[k]) for k in ("loss", "kl", "recon")), f"non-finite validation loss: {agg}")
+    check(all(0.0 <= agg[f"dice_{r}"] <= 1.0 for r in ("wt", "tc", "et")), f"validation Dice outside [0, 1]: {agg}")
+    for name in ("validation_ckpt", "best_dice", "best_loss"):
+        check(os.path.exists(os.path.join(log_dir, name)), f"no {name} after validate_brats")
+    t1 = time.perf_counter()
+    res = trainer.test(data, num_repeats=1, num_samples=BRATS_SAMPLES, checkpoint="best_loss")
+    test_s = (time.perf_counter() - t1) / BRATS_VAL_VOLUMES
+    with np.load(os.path.join(log_dir, "brats_test_results.npz")) as f:
+        check(all(f[k].shape == (1, BRATS_VAL_VOLUMES, 3) for k in ("dice", "sensitivity", "specificity", "hd95")),
+              f"brats_test_results.npz: {dict((k, f[k].shape) for k in f.files)}")
+    t1 = time.perf_counter()
+    paths = trainer.export_predictions(data, num_samples=BRATS_SAMPLES)
+    export_s = (time.perf_counter() - t1) / BRATS_VAL_VOLUMES
+    check(len(paths) == BRATS_VAL_VOLUMES, f"exported {len(paths)} files")
+    for ii, path in enumerate(paths):
+        vol = load_nii(path)[0]
+        orig = tuple(int(s) for s in arrays["origShape_validation"][ii])
+        check(vol.shape == orig and vol.dtype == np.uint8 and set(np.unique(vol).tolist()) <= {0, 1, 2, 4},
+              f"{path}: {vol.shape} {vol.dtype} labels {np.unique(vol).tolist()}, want {orig}")
+    wt = data.get(0, "validation")[1][..., 0]
+    t1 = time.perf_counter()
+    hd = hd95(np.roll(wt, 3, axis=1), wt)
+    hd_s = time.perf_counter() - t1
+    log(f"[brats] validate_brats: {BRATS_VAL_VOLUMES} volumes x {BRATS_SAMPLES} samples at 128^3, {val_s:.3f} s a volume "
+        f"(the checkpoint writes included), peak {val_peak:.1f} MiB; test_brats 1 repeat {test_s:.3f} s a volume; "
+        f"export_predictions {export_s:.3f} s a volume, {len(paths)} .nii.gz read back in the original geometry with "
+        f"labels in {{0, 1, 2, 4}}; HD95 of one region on the host {hd_s:.3f} s ({hd:.2f} voxels for a 3-voxel "
+        f"shift); validation dice WT {agg['dice_wt']:.4f}, loss {agg['loss']:.1f}; test dice {res['dice'][0]:.4f} "
+        f"| card: {card}")
+    trainer.close()
+    log(f"[brats] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return {"parity": parity, "steps": steps, "folds": folds, "validation_s_per_volume": val_s,
+            "validation_peak_mib": val_peak, "test_s_per_volume": test_s, "export_s_per_volume": export_s,
+            "hd95_s": hd_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -2202,6 +2451,10 @@ def main() -> int:
 
         # 9. the Probabilistic U-Net
         prob = prob_unet_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
+
+        # 10. PHiSeg3D and the BraTS path
+        brats_phase(conv_chain, dev, card, log_root)
 
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]

@@ -42,7 +42,8 @@ from unet_zoo_tpu.models.unet import UNet as JaxUNet
 from unet_zoo_tpu.training import Trainer as JaxTrainer
 from unet_zoo_tpu.utils.summary import MetricsWriter as JaxMetricsWriter
 from unet_zoo_tpu_torch.bridge import load_jax_params
-from unet_zoo_tpu_torch.data import BatchProvider, LIDCData, data_switch, normalise_images, resize_batch, synthetic
+from unet_zoo_tpu_torch.data import (BatchProvider, BratsData, LIDCData, data_switch, normalise_images, resize_batch,
+                                     synthetic)
 from unet_zoo_tpu_torch.data.lidc import prepare_data
 from unet_zoo_tpu_torch.experiments import ExperimentConfig, SystemConfig, load_experiment
 from unet_zoo_tpu_torch.training import Trainer, image_metrics
@@ -249,7 +250,8 @@ def test_provider_helpers_match_jax():
 
 def test_loader_and_dataset_registry():
     assert data_switch("lidc") is LIDCData
-    for name in ("uzh_prostate", "uzh_mat", "brats"):
+    assert data_switch("brats") is BratsData
+    for name in ("uzh_prostate", "uzh_mat"):
         with pytest.raises(NotImplementedError, match=name):
             data_switch(name)
     with pytest.raises(ValueError, match="unknown dataset"):

@@ -254,7 +254,7 @@ def test_reversible_experiments_build(name, cls):
     assert any(isinstance(m, ReversibleSequence) for m in model.modules())
 
 
-@pytest.mark.parametrize("name", ["phiseg_uzh_rev_7_5_256", "phiseg_uzh_rev_7_5_192", "phiseg_brats"])
+@pytest.mark.parametrize("name", ["phiseg_uzh_rev_7_5_256", "phiseg_uzh_rev_7_5_192", "phiseg_uzh_rev_7_5_224"])
 def test_unported_reversible_experiments_raise(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         get_experiment(name)

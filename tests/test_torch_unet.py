@@ -141,8 +141,9 @@ def test_bridge_checks_keys_and_shapes():
 
 def test_registry_and_unported_modes():
     assert isinstance(get_model("unet", num_classes=2, num_filters=FILTERS, device="cpu"), UNet)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("phiseg3d", num_classes=2)
+    phiseg3d = get_model("phiseg3d", num_classes=3, num_filters=(2, 4), latent_levels=1, image_size=(4, 4, 4),
+                         reversible_mode="reversible", device="cpu")
+    assert phiseg3d.prior.down0.rev.depth == 1 and phiseg3d.prior.down0.rev.block0_f_kernel.shape == (1, 1, 3, 3, 3)
     with pytest.raises(ValueError, match="unknown model"):
         get_model("resnet")
     assert isinstance(UNet(2, FILTERS, reversible_mode="reversible").down0.rev, ops.ReversibleSequence)
@@ -163,7 +164,8 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.bridge, unet_zoo_tpu_torch.ops.pallas._build, "
             "unet_zoo_tpu_torch.data, unet_zoo_tpu_torch.data.augment, "
             "unet_zoo_tpu_torch.data.batch_provider, unet_zoo_tpu_torch.data.lidc, "
-            "unet_zoo_tpu_torch.data.registry, unet_zoo_tpu_torch.data.synthetic, "
+            "unet_zoo_tpu_torch.data.registry, unet_zoo_tpu_torch.data.synthetic, unet_zoo_tpu_torch.data.brats, "
+            "unet_zoo_tpu_torch.metrics.brats, unet_zoo_tpu_torch.utils.nii, unet_zoo_tpu_torch.utils.postprocess, "
             "unet_zoo_tpu_torch.experiments, unet_zoo_tpu_torch.experiments.config, "
             "unet_zoo_tpu_torch.experiments.registry, unet_zoo_tpu_torch.training, "
             "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "

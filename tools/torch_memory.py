@@ -6,8 +6,11 @@
 The PyTorch twin of ``bench_memory.py``: the full train step (device
 augmentation, forward, loss, backward, coupled-L2 Adam, plateau LR) of
 ``phiseg_7_5_12``'s shape (filters 32/64/128/192/192/192/192, 5 latent
-levels, 128x128x1) in float32 at batch 12 and 24, and of the ``unet``
-experiment's shape at batch 64, each in "plain", "remat" and "reversible".
+levels, 128x128x1) in float32 at batch 12 and 24, of the ``unet``
+experiment's shape at batch 64, and of ``phiseg_brats`` (PHiSeg3D, filters
+32/64/128, 2 latent levels, 128^3x4, one-hot WT/TC/ET labels, its 3D
+augmentation) at batch 1, each in "plain", "remat" and "reversible": the
+RevPHiSeg memory claim measured at 128^3.
 Each cell runs twice: with cuDNN's TF32 off (strict float32, the parity
 setting of ``chip_smoke.py``) and on (PyTorch's default for cuDNN
 convolutions). With TF32 off cuDNN picks algorithms for PHiSeg's 128x128
@@ -35,7 +38,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ("plain", "remat", "reversible")
 # (experiment, batch): the cells of the table
-CELLS = (("phiseg_7_5_12", 12), ("phiseg_7_5_12", 24), ("unet", 64))
+CELLS = (("phiseg_7_5_12", 12), ("phiseg_7_5_12", 24), ("unet", 64), ("phiseg_brats", 1))
 MIB = 2 ** 20
 
 
@@ -64,6 +67,8 @@ def step_peak(experiment: str, mode: str, batch: int, dev, log_dir: str, tf32: b
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((batch, *cfg.image_size, cfg.input_channels), generator=gen, device=dev)
     y = (x[..., 0] > 0).long()
+    if cfg.is_3d:  # BraTS: one-hot WT/TC/ET, nested regions
+        y = torch.stack([x[..., 0] > t for t in (0.0, 0.5, 1.0)], -1).float()
     trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tensorboard=False, tf32=tf32)
     trainer.train_step(x, y)  # warm-up: Adam's moments, the library's workspaces
     torch.cuda.synchronize(dev)

@@ -11,7 +11,8 @@ reversible sequence's flat leaves keep their names: ``.../rev/block0_f_kernel``,
 ``_bias``, ``_scale`` and ``_shift`` become ``....rev.block0_f_kernel`` and so
 on, and its ``block0_f_mean``/``_var`` statistics the buffers of those names.
 Conv kernels go from flax's HWIO to the port's OIHW (``nn.Conv2d`` layout)
-by ``transpose(3, 2, 0, 1)``. Values stay float32 on the CPU.
+by ``transpose(3, 2, 0, 1)``, and PHiSeg3D's DHWIO to OIDHW (``nn.Conv3d``)
+by ``transpose(4, 3, 0, 1, 2)``. Values stay float32 on the CPU.
 """
 
 from __future__ import annotations
@@ -65,6 +66,8 @@ def state_dict_from_jax(params: Mapping[str, Any], model: torch.nn.Module,
         for path, value in _flatten(tree).items():
             if value.ndim == 4:  # HWIO -> OIHW
                 value = value.transpose(3, 2, 0, 1)
+            elif value.ndim == 5:  # DHWIO -> OIDHW
+                value = value.transpose(4, 3, 0, 1, 2)
             out[_torch_name(path, leaves)] = torch.tensor(value, dtype=torch.float32)
     missing = sorted(set(expected) - set(out))
     extra = sorted(set(out) - set(expected))

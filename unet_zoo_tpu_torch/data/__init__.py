@@ -1,25 +1,37 @@
 """Data pipeline of the PyTorch port: host-side batch providers over the
-LIDC cache (``h5py`` imported only where HDF5 is read or written) and the
-on-device 2D augmentation."""
+LIDC and BraTS caches (``h5py`` imported only where HDF5 is read or
+written) and the on-device 2D and 3D augmentation."""
 
 from unet_zoo_tpu_torch.data import synthetic
 from unet_zoo_tpu_torch.data.augment import (
+    Augment3DOptions,
+    Augment3DParams,
     AugmentOptions,
     AugmentParams,
     augment_batch_2d,
+    augment_batch_3d,
+    sample_augment_3d_params,
     sample_augment_params,
     warp_batch_2d,
+    warp_batch_3d,
 )
 from unet_zoo_tpu_torch.data.batch_provider import BatchProvider, normalise_images, resize_batch
+from unet_zoo_tpu_torch.data.brats import BratsData
 from unet_zoo_tpu_torch.data.lidc import LIDCData
 from unet_zoo_tpu_torch.data.registry import DATASETS, data_switch
 
 __all__ = [
+    "Augment3DOptions",
+    "Augment3DParams",
     "AugmentOptions",
     "AugmentParams",
     "augment_batch_2d",
+    "augment_batch_3d",
+    "sample_augment_3d_params",
     "sample_augment_params",
     "warp_batch_2d",
+    "warp_batch_3d",
+    "BratsData",
     "BatchProvider",
     "normalise_images",
     "resize_batch",

@@ -1,12 +1,14 @@
-"""Synthetic LIDC-schema data, a jax-free copy of the LIDC part of
-``unet_zoo_tpu.data.synthetic`` (the same RNG stream, so the same arrays
+"""Synthetic LIDC- and BraTS-schema data, a jax-free copy of those parts of
+``unet_zoo_tpu.data.synthetic`` (the same RNG streams, so the same arrays
 at the same seed).
 
-Images are smooth random blobs; graders are correlated noisy dilations of
-a ground-truth mask, some of them empty, like LIDC's 4-annotator
-disagreement. ``h5py`` is imported only by the functions that write or
-open HDF5; ``lidc_splits`` builds the cache's arrays in memory, which
-``LIDCData`` reads as it reads an open HDF5 file.
+LIDC: images are smooth random blobs; graders are correlated noisy
+dilations of a ground-truth mask, some of them empty, like LIDC's
+4-annotator disagreement. BraTS: 4-channel noise volumes with a nested
+spherical tumour (labels 1, 2, 4 from the outside in) a case. ``h5py`` is
+imported only by the functions that write or open HDF5; ``lidc_splits``
+and ``brats_arrays`` build the caches' arrays in memory, which ``LIDCData``
+and ``BratsData`` read as they read an open HDF5 file.
 """
 
 from __future__ import annotations
@@ -90,3 +92,50 @@ def synthetic_lidc(tmpdir: str, annotator_range=None, num_per_split=(24, 8, 8), 
     if not os.path.exists(path):
         make_lidc_cache(path, num_per_split=num_per_split, size=size, seed=seed)
     return LIDCData(h5py.File(path, "r"), annotator_range=annotator_range, seed=seed)
+
+
+def brats_arrays(num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, int] = (32, 32, 32), seed: int = 0,
+                 keep_offsets: bool = False) -> Dict[str, np.ndarray]:
+    """The BraTS cache's schema in memory: ``images_<split>`` (n, D, H, W, 4)
+    float32, ``masks_<split>`` (n, D, H, W) uint8 in {0, 1, 2, 4} and
+    ``pids_<split>`` int64 for train and validation, an empty test split,
+    and with ``keep_offsets`` the crop offsets ``prepare_data(keep_offsets=True)``
+    records (a crop box of the grid's size, an original volume a few voxels larger)."""
+    rng = np.random.default_rng(seed)
+    d, h, w = size
+    out = {}
+    for tt, n in zip(("train", "validation"), num_per_split):
+        out[f"images_{tt}"] = rng.standard_normal((n, d, h, w, 4)).astype(np.float32)
+        masks = np.zeros((n, d, h, w), dtype=np.uint8)
+        zz, yy, xx = np.mgrid[0:d, 0:h, 0:w]
+        for i in range(n):
+            cz, cy, cx = (rng.uniform(0.3, 0.7, 3) * np.array(size)).astype(int)
+            r = int(0.2 * min(size))
+            dist = np.sqrt((zz - cz) ** 2 + (yy - cy) ** 2 + (xx - cx) ** 2)
+            masks[i][dist < r] = 1
+            masks[i][dist < 0.6 * r] = 2
+            masks[i][dist < 0.3 * r] = 4
+        out[f"masks_{tt}"] = masks
+        out[f"pids_{tt}"] = np.arange(n, dtype=np.int64)
+        if keep_offsets:
+            lo = rng.integers(0, 5, (n, 3)).astype(np.int64)
+            hi = lo + np.asarray(size)
+            for j, name in enumerate(("xOffsets", "yOffsets", "zOffsets")):
+                out[f"{name}_{tt}"] = lo[:, j]
+            out[f"cropHi_{tt}"] = hi
+            out[f"origShape_{tt}"] = hi + rng.integers(0, 4, (n, 3)).astype(np.int64)
+    out["images_test"] = np.zeros((0, d, h, w, 4), np.float32)
+    out["masks_test"] = np.zeros((0, d, h, w), np.uint8)
+    out["pids_test"] = np.zeros((0,), np.int64)
+    return out
+
+
+def make_brats_cache(path: str, num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, int] = (32, 32, 32),
+                     seed: int = 0, keep_offsets: bool = False) -> str:
+    """Write ``brats_arrays`` as an HDF5 cache with the BraTS schema."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, value in brats_arrays(num_per_split, size, seed, keep_offsets).items():
+            f.create_dataset(name, data=value)
+    return path

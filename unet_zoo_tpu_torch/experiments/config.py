@@ -1,11 +1,12 @@
 """Experiment and system configuration, a jax-free copy of
 ``unet_zoo_tpu.experiments.config``.
 
-``ExperimentConfig`` carries the fields that the U-Net, ProbUNet and PHiSeg
-2D train step, the evaluation and the train loop read, with the JAX
-package's names and defaults; the other families' fields come back with
-their ports. ``validate`` raises on what the JAX package rejects and on what
-the port does not run yet (3D, host augmentation). ``SystemConfig`` is the JAX package's whole, so that one
+``ExperimentConfig`` carries the fields that the U-Net, ProbUNet, PHiSeg and
+PHiSeg3D train steps, the evaluation and the train loop read, with the JAX
+package's names and defaults; the UZH fields come back with their port.
+``validate`` raises on what the JAX package rejects and on what the port
+does not run (host augmentation, a 3D U-Net or ProbUNet, whose BN-free conv
+chains have no 3D kernel). ``SystemConfig`` is the JAX package's whole, so that one
 ``config.json`` loads in both packages. ``load_experiment`` takes a registry
 name or a ``.py`` file that defines ``config``.
 """
@@ -19,7 +20,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from unet_zoo_tpu_torch.data.augment import AugmentOptions
+from unet_zoo_tpu_torch.data.augment import Augment3DOptions, AugmentOptions
 from unet_zoo_tpu_torch.ops.conv import MEMORY_MODES
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -69,6 +70,7 @@ class ExperimentConfig:
     annotator_range: Optional[Tuple[int, ...]] = None
     resize_to: Optional[Tuple[int, ...]] = None
     augmentation_options: Optional[AugmentOptions] = None
+    augmentation_options_3d: Optional[Augment3DOptions] = None
     augment_on: str = "device"  # "host" (the JAX package's cv2 chain) is not ported
     data_seed: Optional[int] = 0
     loader: str = "h5py"  # "native" (the JAX package's C++ store) is not ported
@@ -96,6 +98,10 @@ class ExperimentConfig:
             return self.reversible_mode
         return "reversible" if self.use_reversible else "plain"
 
+    @property
+    def is_3d(self) -> bool:
+        return len(self.image_size) == 3
+
     def model_kwargs(self) -> dict:
         """Constructor kwargs for ``unet_zoo_tpu_torch.models.registry.get_model``."""
         kw = dict(
@@ -105,7 +111,7 @@ class ExperimentConfig:
             reversible_mode=self.effective_reversible_mode,
             dtype=_DTYPES[self.dtype],
         )
-        if self.model == "phiseg":
+        if self.model in ("phiseg", "phiseg3d"):
             kw.update(
                 latent_levels=self.latent_levels,
                 zdim=self.zdim,
@@ -120,11 +126,9 @@ class ExperimentConfig:
     def validate(self) -> None:
         if self.model not in ("unet", "prob_unet", "phiseg", "phiseg3d"):
             raise ValueError(f"unknown model '{self.model}'")
-        if self.model not in ("unet", "prob_unet", "phiseg"):
-            raise NotImplementedError(f"model '{self.model}' is not ported to PyTorch yet")
         if self.effective_reversible_mode not in MEMORY_MODES:
             raise ValueError(f"reversible_mode must be one of {MEMORY_MODES}, got '{self.effective_reversible_mode}'")
-        if self.model == "phiseg" and not 1 <= self.latent_levels <= len(self.filter_channels):
+        if self.model in ("phiseg", "phiseg3d") and not 1 <= self.latent_levels <= len(self.filter_channels):
             raise ValueError(f"latent_levels {self.latent_levels} must be in [1, {len(self.filter_channels)}]")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got '{self.dtype}'")
@@ -134,8 +138,10 @@ class ExperimentConfig:
             raise ValueError(f"augment_on must be 'device' or 'host', got '{self.augment_on}'")
         if self.loader not in ("h5py", "native"):
             raise ValueError(f"loader must be 'h5py' or 'native', got '{self.loader}'")
-        if len(self.image_size) != 2:
-            raise NotImplementedError("3D experiments are not ported to PyTorch yet")
+        if len(self.image_size) not in (2, 3):
+            raise ValueError(f"image_size must have 2 or 3 axes, got {self.image_size}")
+        if self.is_3d and self.model not in ("phiseg", "phiseg3d"):
+            raise NotImplementedError(f"a 3D '{self.model}' is not ported: its BN-free conv chains have no 3D kernel")
         # pooling is ceil-mode and every upsample resizes to the skip's exact
         # shape, so any size works down to a non-empty coarsest level
         levels = len(self.filter_channels)

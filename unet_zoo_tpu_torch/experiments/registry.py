@@ -1,9 +1,9 @@
 """Built-in experiments, a jax-free copy of ``unet_zoo_tpu.experiments.registry``.
 
 The ``unet`` and ``reversible_unet`` entries, ``prob_unet`` and
-``prob_unet_reversible``, and the 2D LIDC PHiSeg entries, plain and
-reversible, are ported (each with the JAX entry's values of the fields the
-port carries); the JAX package's other names (UZH prostate, BraTS) raise
+``prob_unet_reversible``, the 2D LIDC PHiSeg entries, plain and reversible,
+and ``phiseg_brats`` (PHiSeg3D) are ported (each with the JAX entry's values
+of the fields the port carries); the JAX package's UZH prostate names raise
 ``NotImplementedError``.
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict
 
-from unet_zoo_tpu_torch.data.augment import AugmentOptions
+from unet_zoo_tpu_torch.data.augment import Augment3DOptions, AugmentOptions
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig
 
 _LIDC_AUG = AugmentOptions(  # reference phiseg_7_5_12.py:33-37
@@ -94,6 +94,31 @@ def _phiseg_big_reversible() -> ExperimentConfig:
     return dataclasses.replace(_phiseg_big(), experiment_name="PHISegBigRev", use_reversible=True)
 
 
+def _phiseg_brats() -> ExperimentConfig:
+    """reference models/experiments/phiseg_brats.py (volumetric 128^3)"""
+    return ExperimentConfig(
+        experiment_name="PHISeg_brats",
+        log_dir_name="brats",
+        model="phiseg3d",
+        data_loader="brats",
+        filter_channels=(32, 64, 128),
+        latent_levels=2,
+        n_classes=3,
+        num_labels_per_subject=1,
+        use_reversible=True,
+        input_channels=4,
+        batch_size=1,
+        image_size=(128, 128, 128),
+        augmentation_options_3d=Augment3DOptions(
+            do_rotate=True, rot_degrees=20.0,
+            do_scale=True, scale_factor=1.1,
+            do_elastic=True, elastic_sigma=10.0,
+            do_flip=True, do_intensity_shift=True, max_intensity_shift=0.1,
+            nlabels=3,
+        ),
+    )
+
+
 EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
     "unet": _unet,
     "reversible_unet": _reversible_unet,
@@ -103,13 +128,13 @@ EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
     **{f"phiseg_rev_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b, True))(bs) for bs in (12, 24, 36, 48, 56, 60, 64)},
     "phiseg_big": _phiseg_big,
     "phiseg_big_reversible": _phiseg_big_reversible,
+    "phiseg_brats": _phiseg_brats,
 }
 
 # in the JAX package's registry, not ported yet
 NOT_PORTED = (
     *(f"phiseg_uzh_7_5_{res}" for res in (192, 256, 384, 512)),
     *(f"phiseg_uzh_rev_7_5_{res}" for res in (192, 224, 256, 384, 512)),
-    "phiseg_brats",
 )
 
 

@@ -1,7 +1,8 @@
 """Evaluation metrics of the PyTorch port, on the device: GED (one Gram
-product a label), variance-NCC and Dice. The BraTS metrics are not ported
-yet (ROADMAP, queue A item 9)."""
+product a label), variance-NCC and Dice; and BraTS's soft Dice,
+sensitivity and specificity, with HD95 on the host."""
 
+from unet_zoo_tpu_torch.metrics.brats import brats_dice_loss, hd95, sensitivity, soft_dice, specificity
 from unet_zoo_tpu_torch.metrics.dice import dice_binary, dice_per_label
 from unet_zoo_tpu_torch.metrics.ged import (
     generalised_energy_distance,
@@ -11,6 +12,11 @@ from unet_zoo_tpu_torch.metrics.ged import (
 from unet_zoo_tpu_torch.metrics.ncc import ncc, variance_ncc_dist, variance_ncc_dist_class_first
 
 __all__ = [
+    "brats_dice_loss",
+    "hd95",
+    "sensitivity",
+    "soft_dice",
+    "specificity",
     "dice_binary",
     "dice_per_label",
     "generalised_energy_distance",

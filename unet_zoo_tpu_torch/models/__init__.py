@@ -1,4 +1,4 @@
-"""Model families of the PyTorch port: the U-Net, ProbUNet and PHiSeg 2D so far."""
+"""Model families of the PyTorch port: the U-Net, ProbUNet, PHiSeg and PHiSeg3D."""
 
 from unet_zoo_tpu_torch.models.phiseg import PHiSeg
 from unet_zoo_tpu_torch.models.prob_unet import ProbUNet

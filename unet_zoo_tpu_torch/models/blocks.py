@@ -51,20 +51,20 @@ class DownBlock(nn.Module):
 
 
 class PhiDownBlock(nn.Module):
-    """PHiSeg block: optional ceil-mode 2x2 avg-pool, then ``DEPTH``
+    """PHiSeg block: optional ceil-mode 2x2(x2) avg-pool, then ``DEPTH``
     torch_default conv + BatchNorm + ReLU (``ops.ConvSeq(norm=True)``,
     library ops) in "plain" and "remat", or ``rev_depth`` coupling blocks in
-    "reversible"."""
+    "reversible"; over ``ndim`` spatial axes."""
 
     def __init__(self, in_channels: int, features: int, pool: bool = True, reversible_mode: str = "plain",
                  rev_depth: int = 3, dtype: Optional[torch.dtype] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ndim: int = 2):
         super().__init__()
         self.pool = pool
         self.seq_name = seq_name(reversible_mode)
         self.add_module(self.seq_name, ops.conv_sequence(
             in_channels, features, DEPTH, mode=reversible_mode, rev_depth=rev_depth, norm=True,
-            init_scheme="torch_default", dtype=dtype, device=device, generator=generator))
+            init_scheme="torch_default", dtype=dtype, device=device, generator=generator, ndim=ndim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.pool:

@@ -1,4 +1,5 @@
-"""PHiSeg 2D, the twin of ``unet_zoo_tpu.models.phiseg`` (NHWC), in the three memory modes.
+"""PHiSeg, the twin of ``unet_zoo_tpu.models.phiseg`` (2D NHWC and PHiSeg3D on NDHWC), in the
+three memory modes.
 
 A hierarchical conditional VAE for segmentation (arXiv:1906.04045):
 
@@ -14,6 +15,11 @@ A hierarchical conditional VAE for segmentation (arXiv:1906.04045):
 * the loss: the residual multinoulli CE on the cumulative logits plus the
   4^level-weighted hierarchical KL (``kl_parity``: the reference's
   ``sigma1 * sigma0`` quirk).
+
+One class serves both ranks, as in the JAX package: ``len(image_size)`` (2
+or 3) sets the number of spatial axes, and every resize targets the shape's
+spatial part (``shape[1:-1]``). The registry's ``phiseg3d`` is this class
+with ``REV_DEPTHS_3D``.
 
 ``self.training`` stands where the JAX package passes ``train``: it selects
 BatchNorm's batch statistics, the prior's teacher forcing by the posterior z
@@ -39,8 +45,9 @@ Memory modes (``reversible_mode``), as in the JAX model: "remat" runs every
 conv sequence under ``ops.remat`` with the plain parameter tree;
 "reversible" (RevPHiSeg) makes the down blocks, the up blocks, the
 ``_SampleZ`` sequences, the likelihood's embeds and its post-c sequences
-``ReversibleSequence``s of ``REV_DEPTHS_2D`` = (down, up, sample_z, embed,
-post_c) coupling blocks. In both memory modes the likelihood's
+``ReversibleSequence``s of ``rev_depths`` = (down, up, sample_z, embed,
+post_c) coupling blocks (``REV_DEPTHS_2D``, or ``REV_DEPTHS_3D`` for
+PHiSeg3D). In both memory modes the likelihood's
 resolution-increase stages, which sit at the largest sizes, run under
 ``ops.remat`` with their plain parameters.
 """
@@ -65,6 +72,7 @@ EXPONENTIAL_WEIGHT = 4.0
 
 # coupling blocks of each reversible sequence kind: (down, up, sample_z, embed, post_c)
 REV_DEPTHS_2D = (3, 2, 3, 2, 2)
+REV_DEPTHS_3D = (1, 1, 1, 1, 1)
 
 
 def _seq(in_channels: int, features: int, depth: int, mode: str = "plain", rev_depth: Optional[int] = None,
@@ -74,16 +82,17 @@ def _seq(in_channels: int, features: int, depth: int, mode: str = "plain", rev_d
 
 
 class _SampleZ(nn.Module):
-    """2 conv+BN+ReLU (or ``REV_DEPTHS_2D[2]`` coupling blocks), then 1x1
-    ``mu`` and softplus 1x1 ``sigma`` heads."""
+    """2 conv+BN+ReLU (or ``rev_depth`` coupling blocks), then 1x1 ``mu``
+    and softplus 1x1 ``sigma`` heads."""
 
-    def __init__(self, in_channels: int, zdim: int, mode: str = "plain", dtype=None, device=None, generator=None):
+    def __init__(self, in_channels: int, zdim: int, mode: str = "plain", rev_depth: int = REV_DEPTHS_2D[2],
+                 dtype=None, device=None, generator=None, ndim: int = 2):
         super().__init__()
         self.seq_name = seq_name(mode)
-        self.add_module(self.seq_name, _seq(in_channels, in_channels, 2, mode, REV_DEPTHS_2D[2], dtype=dtype,
-                                            device=device, generator=generator))
-        self.mu = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator)
-        self.sigma = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator)
+        self.add_module(self.seq_name, _seq(in_channels, in_channels, 2, mode, rev_depth, dtype=dtype,
+                                            device=device, generator=generator, ndim=ndim))
+        self.mu = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator, ndim=ndim)
+        self.sigma = ops.Conv(in_channels, zdim, kernel_size=1, device=device, generator=generator, ndim=ndim)
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         x = getattr(self, self.seq_name)(x)
@@ -91,18 +100,19 @@ class _SampleZ(nn.Module):
 
 
 class _PhiUpBlock(nn.Module):
-    """z resized (bilinear, ``align_corners=True``) to the skip's exact
-    shape, 2 conv+BN+ReLU (or ``REV_DEPTHS_2D[1]`` coupling blocks), returned
+    """z resized (bi- or trilinear, ``align_corners=True``) to the skip's
+    exact shape, 2 conv+BN+ReLU (or ``rev_depth`` coupling blocks), returned
     beside the skip as an implicit concat."""
 
-    def __init__(self, zdim: int, features: int, mode: str = "plain", dtype=None, device=None, generator=None):
+    def __init__(self, zdim: int, features: int, mode: str = "plain", rev_depth: int = REV_DEPTHS_2D[1],
+                 dtype=None, device=None, generator=None, ndim: int = 2):
         super().__init__()
         self.seq_name = seq_name(mode)
-        self.add_module(self.seq_name, _seq(zdim, features, 2, mode, REV_DEPTHS_2D[1], dtype=dtype, device=device,
-                                            generator=generator))
+        self.add_module(self.seq_name, _seq(zdim, features, 2, mode, rev_depth, dtype=dtype, device=device,
+                                            generator=generator, ndim=ndim))
 
     def forward(self, z: torch.Tensor, bridge: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = ops.resize_linear(z.to(bridge.dtype), bridge.shape[1:3], align_corners=True)
+        x = ops.resize_linear(z.to(bridge.dtype), bridge.shape[1:-1], align_corners=True)
         return getattr(self, self.seq_name)(x), bridge
 
 
@@ -110,25 +120,26 @@ class _PhiEncoder(nn.Module):
     """The posterior (``is_posterior``: the mask joins the image) or the prior net."""
 
     def __init__(self, in_channels: int, num_filters: Sequence[int], latent_levels: int, is_posterior: bool,
-                 mask_channels: int = 2, zdim: int = 2, reversible_mode: str = "plain", dtype=None, device=None,
-                 generator=None):
+                 mask_channels: int = 2, zdim: int = 2, reversible_mode: str = "plain",
+                 rev_depths: Sequence[int] = REV_DEPTHS_2D, dtype=None, device=None, generator=None, ndim: int = 2):
         super().__init__()
         R, L = len(num_filters), latent_levels
         self.is_posterior = is_posterior
         self.mask_channels = mask_channels
         self.latent_levels = L
-        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.zdim = zdim
+        kw = dict(dtype=dtype, device=device, generator=generator, ndim=ndim)
         mode = reversible_mode
         c = in_channels + (mask_channels if is_posterior else 0)
         for i, f in enumerate(num_filters):
             self.add_module(f"down{i}", PhiDownBlock(c, f, pool=i != 0, reversible_mode=mode,
-                                                     rev_depth=REV_DEPTHS_2D[0], **kw))
+                                                     rev_depth=rev_depths[0], **kw))
             c = f
         for i in range(L - 1):
-            self.add_module(f"up{i}", _PhiUpBlock(zdim, 2 * num_filters[0], mode, **kw))
+            self.add_module(f"up{i}", _PhiUpBlock(zdim, 2 * num_filters[0], mode, rev_depths[1], **kw))
         for i in range(L):
             c = num_filters[-1] if i == 0 else 2 * num_filters[0] + num_filters[R - 1 - i]
-            self.add_module(f"samplez{i}", _SampleZ(c, zdim, mode, **kw))
+            self.add_module(f"samplez{i}", _SampleZ(c, zdim, mode, rev_depths[2], **kw))
         self.num_levels = R
 
     def trunk(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> Tuple[Levels, torch.Tensor]:
@@ -182,22 +193,22 @@ class _PhiLikelihood(nn.Module):
     """Decodes the latent hierarchy into per-level residual logits."""
 
     def __init__(self, num_classes: int, num_filters: Sequence[int], latent_levels: int,
-                 image_size: Sequence[int], zdim: int = 2, reversible_mode: str = "plain", dtype=None, device=None,
-                 generator=None):
+                 image_size: Sequence[int], zdim: int = 2, reversible_mode: str = "plain",
+                 rev_depths: Sequence[int] = REV_DEPTHS_2D, dtype=None, device=None, generator=None, ndim: int = 2):
         super().__init__()
         R, L = len(num_filters), latent_levels
         self.num_filters = tuple(num_filters)
         self.latent_levels = L
         self.image_size = tuple(image_size)
         self.dtype = dtype
-        kw = dict(dtype=dtype, device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator, ndim=ndim)
         mode = reversible_mode
         # the resolution-increase stages stay conv sequences, under remat in both memory modes
         incres_mode = "plain" if mode == "plain" else "remat"
         lvl_diff = R - L
         for j in range(L):  # the j-th embed handles latent level L - 1 - j
             feats = num_filters[L - 1 - j]
-            self.add_module(f"embed{j}", _seq(zdim, feats, 2, mode, REV_DEPTHS_2D[3], **kw))
+            self.add_module(f"embed{j}", _seq(zdim, feats, 2, mode, rev_depths[3], **kw))
             for t in range(lvl_diff):
                 self.add_module(f"incres{j}_{t}", _seq(feats, feats, 1, incres_mode, **kw))
 
@@ -206,11 +217,11 @@ class _PhiLikelihood(nn.Module):
 
         for i in range(L - 1):
             self.add_module(f"postc{i}", _seq(num_filters[i] + post_c_channels(i + 1),
-                                              num_filters[i + lvl_diff], 2, mode, REV_DEPTHS_2D[4], **kw))
+                                              num_filters[i + lvl_diff], 2, mode, rev_depths[4], **kw))
         for j in range(L):
             self.add_module(f"head{j}", ops.ConvBNAct(
                 post_c_channels(L - 1 - j), num_classes, kernel_size=1, norm=False, act=False,
-                device=device, generator=generator))
+                device=device, generator=generator, ndim=ndim))
 
     def forward(self, z_list: Levels) -> Levels:
         L, R = self.latent_levels, len(self.num_filters)
@@ -232,7 +243,7 @@ class _PhiLikelihood(nn.Module):
         post_c: List = [None] * L
         post_c[L - 1] = post_z[L - 1]
         for i in range(L - 2, -1, -1):
-            ups = ops.resize_linear(post_c[i + 1], post_z[i].shape[1:3], align_corners=True)
+            ups = ops.resize_linear(post_c[i + 1], post_z[i].shape[1:-1], align_corners=True)
             post_c[i] = getattr(self, f"postc{i}")((post_z[i], ups))
 
         s: List = [None] * L
@@ -243,22 +254,27 @@ class _PhiLikelihood(nn.Module):
 
 
 class PHiSeg(nn.Module):
-    """PHiSeg 2D on NHWC input. ``in_channels`` is explicit here (the JAX
-    model infers it at init)."""
+    """PHiSeg on NHWC input, or PHiSeg3D on NDHWC input where ``image_size``
+    has 3 axes. ``in_channels`` is explicit here (the JAX model infers it at
+    init)."""
 
     def __init__(self, num_classes: int, num_filters: Sequence[int] = (32, 64, 128, 192, 192, 192, 192),
                  latent_levels: int = 5, zdim: int = 2, image_size: Sequence[int] = (128, 128),
                  in_channels: int = 1, reversible_mode: str = "plain", exponential_weighting: bool = True,
-                 kl_parity: bool = True,
+                 kl_parity: bool = True, rev_depths: Sequence[int] = REV_DEPTHS_2D,
                  dtype: Optional[torch.dtype] = None, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if not 1 <= latent_levels <= len(num_filters):
             raise ValueError(f"latent_levels must be in [1, {len(num_filters)}], got {latent_levels}")
+        if len(image_size) not in (2, 3) or len(rev_depths) != 5:
+            raise ValueError(f"PHiSeg takes a 2D or 3D image_size and 5 rev_depths, got {tuple(image_size)} and "
+                             f"{tuple(rev_depths)}")
         self.latent_levels = latent_levels
         self.exponential_weighting = exponential_weighting
         self.kl_parity = kl_parity
         kw = dict(num_filters=tuple(num_filters), latent_levels=latent_levels, zdim=zdim,
-                  reversible_mode=reversible_mode, dtype=dtype, device=device, generator=generator)
+                  reversible_mode=reversible_mode, rev_depths=tuple(rev_depths), dtype=dtype, device=device,
+                  generator=generator, ndim=len(image_size))
         self.posterior = _PhiEncoder(in_channels, is_posterior=True, mask_channels=num_classes, **kw)
         self.prior = _PhiEncoder(in_channels, is_posterior=False, **kw)
         self.likelihood = _PhiLikelihood(num_classes, image_size=image_size, **kw)
@@ -269,7 +285,7 @@ class PHiSeg(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 post_eps: Optional[Levels] = None, prior_eps: Optional[Levels] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, Levels]:
-        """x (B, H, W, C); mask (B, H, W) int or (B, H, W, classes) one-hot.
+        """x (B, *S, C); mask (B, *S) int or (B, *S, classes) one-hot (BraTS).
         Returns the posterior's (if ``mask``) and the prior's z, mu and sigma
         and ``s_list``, each a list indexed by latent level. In training the
         prior is teacher-forced by the posterior z (so ``prior_eps`` is not
@@ -286,22 +302,38 @@ class PHiSeg(nn.Module):
         return out
 
     def sample(self, x: torch.Tensor, n: int, eps: Optional[Levels] = None,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None, chunk: Optional[int] = None) -> torch.Tensor:
         """n prior samples, with BatchNorm's running statistics whatever the
-        mode: the trunk runs once, the latent path and the decoder once on
-        the n * B samples folded into the batch. ``eps[lvl]`` is (B, n, h, w,
-        zdim). Returns the accumulated logits (B, n, H, W, classes)."""
+        mode: the trunk runs once, the latent path and the decoder on the n *
+        B samples folded into the batch, sample-major, ``chunk`` samples at a
+        time (default all n). ``eps[lvl]`` is (B, n, *s, zdim); otherwise the
+        noise of the whole fold is drawn from ``generator`` before the first
+        chunk, level by level from the coarsest, as the latent path would
+        draw it, so that a chunked fold decodes what the whole fold does.
+        Returns the accumulated logits (B, n, *S, classes)."""
         generator = generator or self.generator
         was_training = self.training
         self.eval()
         try:
             skips, bottom = self.prior.trunk(x)
-            batch = x.shape[0]
-            fold = [t.repeat(n, 1, 1, 1) for t in (*skips, bottom)]  # sample-major: (n * B, ...)
-            if eps is not None:
+            batch, L = x.shape[0], self.latent_levels
+            skips = skips[len(skips) - (L - 1):]  # the latent path reads the coarsest L - 1 skips only
+            if eps is None:
+                # level L - 1 - i comes from the bottom (i = 0) or from skips[-i]
+                spatial = [bottom.shape[1:-1]] + [skips[-i].shape[1:-1] for i in range(1, L)]
+                eps = [torch.randn((n * batch, *s, self.prior.zdim), generator=generator, device=x.device)
+                       for s in spatial][::-1]
+            else:
                 eps = [e.transpose(0, 1).reshape(n * batch, *e.shape[2:]) for e in eps]
-            z, _, _ = self.prior.zpath(fold[:-1], fold[-1], eps=eps, generator=generator)
-            logits = self.accumulate_output(self.likelihood(z))
+            chunk = chunk or n
+            logits = []
+            for s0 in range(0, n, chunk):
+                c = min(chunk, n - s0)
+                fold = [t.repeat(c, *([1] * (t.ndim - 1))) for t in (*skips, bottom)]
+                rows = slice(s0 * batch, (s0 + c) * batch)
+                z, _, _ = self.prior.zpath(fold[:-1], fold[-1], eps=[e[rows] for e in eps])
+                logits.append(self.accumulate_output(self.likelihood(z)))
+            logits = torch.cat(logits)
         finally:
             self.train(was_training)
         return logits.reshape(n, batch, *logits.shape[1:]).transpose(0, 1)

@@ -6,14 +6,19 @@ from typing import Any, Dict
 
 import torch
 
-from unet_zoo_tpu_torch.models.phiseg import PHiSeg
+from unet_zoo_tpu_torch.models.phiseg import REV_DEPTHS_3D, PHiSeg
 from unet_zoo_tpu_torch.models.prob_unet import ProbUNet
 from unet_zoo_tpu_torch.models.unet import UNet
 
-MODELS: Dict[str, Any] = {"unet": UNet, "prob_unet": ProbUNet, "phiseg": PHiSeg}
 
-# in the JAX package's registry, not ported yet
-NOT_PORTED = ("phiseg3d",)
+def _phiseg3d(**kw) -> PHiSeg:
+    """PHiSeg3D: the same class on NDHWC input, with one coupling block a
+    reversible sequence (``REV_DEPTHS_3D``) unless ``rev_depths`` says otherwise."""
+    kw.setdefault("rev_depths", REV_DEPTHS_3D)
+    return PHiSeg(**kw)
+
+
+MODELS: Dict[str, Any] = {"unet": UNet, "prob_unet": ProbUNet, "phiseg": PHiSeg, "phiseg3d": _phiseg3d}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,6 +36,4 @@ def get_model(name: str, **kwargs):
     """Builds model ``name`` on ``kwargs['device']``, by default the card."""
     if name in MODELS:
         return MODELS[name](**{**kwargs, "device": resolve_device(kwargs.get("device"))})
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"model '{name}' is not ported to PyTorch yet; ported: {sorted(MODELS)}")
     raise ValueError(f"unknown model '{name}'; available: {sorted(MODELS)}")

@@ -1,6 +1,6 @@
 """Op library of the PyTorch port: conv blocks in the three memory modes,
-BatchNorm, pooling, resizing, initializers. NHWC at every public function,
-as in ``unet_zoo_tpu.ops``."""
+BatchNorm, pooling, resizing, initializers. NHWC or NDHWC at every public
+function, as in ``unet_zoo_tpu.ops``."""
 
 from unet_zoo_tpu_torch.ops.init import (
     kaiming_normal_fan_in,

@@ -1,4 +1,4 @@
-"""Convolution blocks, the twins of ``unet_zoo_tpu.ops.conv`` (2D, NHWC).
+"""Convolution blocks, the twins of ``unet_zoo_tpu.ops.conv`` (2D NHWC and 3D NDHWC).
 
 * ``Conv``      — bare conv with bias, the torch padding rule (k=3 -> 1,
                   else 0) and a selectable init scheme; a tuple input is an
@@ -10,16 +10,20 @@
                   U-Net block) it runs as the fused conv-chain kernel; with
                   norm (every PHiSeg sequence) as library ops, as in the JAX
                   package, whose BN sequences never reach its Pallas kernel.
+                  The kernel is 2D: a BN-free 3D sequence raises.
 * ``conv_sequence`` — a sequence in one of the memory modes: ``plain``
                   (``ConvSeq``), ``remat`` (the same ``ConvSeq`` under
                   ``remat``, the twin of ``nn.remat``) or ``reversible``
                   (``ops/reversible.py``).
 
-Parameters are float32 and OIHW (``nn.Conv2d`` layout) and are drawn on the
-CPU from an explicit ``torch.Generator`` (so a seed gives the same weights
-on every device), then moved to ``device``. ``dtype`` is the compute dtype,
-as in the JAX package: operands are cast to it, the bias is added in f32 and
-the result is cast back to it (``conv_chain.conv2d_nhwc``).
+``ndim`` (2 or 3) is the number of spatial axes: the JAX modules infer it
+from their input, the port's need it to shape their weights. Parameters are
+float32 and OIHW or OIDHW (the ``nn.Conv2d``/``nn.Conv3d`` layouts) and are
+drawn on the CPU from an explicit ``torch.Generator`` (so a seed gives the
+same weights on every device), then moved to ``device``. ``dtype`` is the
+compute dtype, as in the JAX package: operands are cast to it, the bias is
+added in f32 and the result is cast back to it (``conv_chain.conv2d_nhwc``,
+``conv3d_ndhwc``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from unet_zoo_tpu_torch.ops import init as init_lib
@@ -50,6 +55,14 @@ def chain_route(dtype: torch.dtype, device) -> str:
     if torch.device(device).type != "cuda":
         return "plain"
     return "conv3x3_f32_3xtf32_wgmma" if dtype == torch.float32 else "conv3x3_bf16_wgmma"
+
+
+def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, padding: int) -> torch.Tensor:
+    """The 3D twin of ``conv_chain.conv2d_nhwc``: ``F.conv3d`` in ``x.dtype``
+    on the NDHWC input's ``channels_last_3d`` view, the bias added in f32,
+    the result cast back to ``x.dtype``. OIDHW weight."""
+    y = F.conv3d(x.movedim(-1, 1), weight.to(x.dtype), padding=padding).movedim(1, -1)
+    return (y.float() + bias.float()).to(x.dtype)
 
 
 def _recompute_contexts():
@@ -90,7 +103,8 @@ class _ZeroGrad(torch.autograd.Function):
 
 
 class Conv(nn.Module):
-    """Bare 2D convolution with bias over NHWC input, torch padding rule and init.
+    """Bare convolution with bias over NHWC (``ndim`` 2) or NDHWC (3) input,
+    torch padding rule and init.
 
     ``init_scheme`` is 'he_normal', 'orthogonal' or 'torch_default'. ``x``
     may be a tuple of tensors, concatenated along channels in order (the
@@ -102,12 +116,15 @@ class Conv(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  init_scheme: str = "torch_default", grad_free_bias: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ndim: int = 2):
         super().__init__()
+        if ndim not in (2, 3):
+            raise ValueError(f"ndim must be 2 or 3, got {ndim}")
         self.padding = kernel_size // 2 if kernel_size == 3 else 0
         self.grad_free_bias = grad_free_bias
         self.dtype = dtype
-        shape = (features, in_channels, kernel_size, kernel_size)
+        self.conv_nd = conv2d_nhwc if ndim == 2 else conv3d_ndhwc
+        shape = (features, in_channels) + (kernel_size,) * ndim
         kernel_init, bias_init = init_lib.SCHEMES[init_scheme]
         if bias_init is None:
             bias_init = init_lib.torch_default_conv_bias(math.prod(shape[1:]))
@@ -117,7 +134,7 @@ class Conv(nn.Module):
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
         bias = _ZeroGrad.apply(self.bias) if self.grad_free_bias else self.bias
-        return conv2d_nhwc(x.to(self.dtype or x.dtype), self.weight, bias, self.padding)
+        return self.conv_nd(x.to(self.dtype or x.dtype), self.weight, bias, self.padding)
 
 
 class ConvBNAct(nn.Module):
@@ -130,11 +147,11 @@ class ConvBNAct(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3, norm: bool = True,
                  act: bool = True, init_scheme: str = "torch_default",
                  dtype: Optional[torch.dtype] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, ndim: int = 2):
         super().__init__()
         self.act = act
         self.conv = Conv(in_channels, features, kernel_size, init_scheme=init_scheme,
-                         grad_free_bias=norm, dtype=dtype, device=device, generator=generator)
+                         grad_free_bias=norm, dtype=dtype, device=device, generator=generator, ndim=ndim)
         self.bn = BatchNorm(features, device=device) if norm else None
 
     def forward(self, x: Tensors) -> torch.Tensor:
@@ -152,7 +169,8 @@ class ConvSeq(nn.Module):
     sequence runs as one fused conv chain: the kernel of
     ``ops/pallas/conv_chain.py`` on CUDA, its plain version on the CPU
     (``chain_route``). Gradients reach the float32 ``weight``/``bias``
-    parameters on both (``FusedConvChain`` on CUDA).
+    parameters on both (``FusedConvChain`` on CUDA). The kernel is 2D: a
+    BN-free 3D sequence raises ``NotImplementedError`` on every device.
 
     The CUDA chain packs the kernels into the kernel's weight layout in
     buffers allocated once per (dtype, device) and refilled on every
@@ -166,7 +184,7 @@ class ConvSeq(nn.Module):
 
     def __init__(self, in_channels: int, features: int, depth: int, norm: bool = False,
                  init_scheme: str = "he_normal", remat: bool = False, dtype: Optional[torch.dtype] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None, ndim: int = 2):
         super().__init__()
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
@@ -176,7 +194,7 @@ class ConvSeq(nn.Module):
         for i in range(depth):
             self.add_module(f"conv{i}", ConvBNAct(
                 in_channels if i == 0 else features, features, norm=norm, init_scheme=init_scheme,
-                dtype=dtype, device=device, generator=generator,
+                dtype=dtype, device=device, generator=generator, ndim=ndim,
             ))
         self._packed: Dict[tuple, List[torch.Tensor]] = {}
 
@@ -195,6 +213,8 @@ class ConvSeq(nn.Module):
             for layer in self.children():
                 x = layer(x)
             return x
+        if x.ndim == 5:
+            raise NotImplementedError("the conv-chain kernel is 2D: a BN-free 3D conv sequence has no kernel")
         x = x.to(self.dtype or x.dtype).contiguous()
         convs = [m.conv for m in self.children()]
         weights = [c.weight for c in convs]
@@ -204,7 +224,7 @@ class ConvSeq(nn.Module):
 
 def conv_sequence(in_channels: int, features: int, depth: int, mode: str = "plain", rev_depth: Optional[int] = None,
                   norm: bool = True, init_scheme: str = "torch_default", dtype: Optional[torch.dtype] = None,
-                  device=None, generator: Optional[torch.Generator] = None) -> nn.Module:
+                  device=None, generator: Optional[torch.Generator] = None, ndim: int = 2) -> nn.Module:
     """A conv sequence in memory mode ``mode``, the twin of the JAX
     package's ``conv_sequence``:
 
@@ -219,8 +239,9 @@ def conv_sequence(in_channels: int, features: int, depth: int, mode: str = "plai
         from unet_zoo_tpu_torch.ops.reversible import ReversibleSequence
 
         return ReversibleSequence(in_channels, features, rev_depth if rev_depth is not None else depth,
-                                  init_scheme=init_scheme, dtype=dtype, device=device, generator=generator)
+                                  init_scheme=init_scheme, dtype=dtype, device=device, generator=generator,
+                                  ndim=ndim)
     if mode not in MEMORY_MODES:
         raise ValueError(f"memory mode must be one of {MEMORY_MODES}, got '{mode}'")
     return ConvSeq(in_channels, features, depth, norm=norm, init_scheme=init_scheme, remat=mode == "remat",
-                   dtype=dtype, device=device, generator=generator)
+                   dtype=dtype, device=device, generator=generator, ndim=ndim)

@@ -2,7 +2,7 @@
 
 eps 1e-3 and momentum 0.01 (torch style: the weight of the new batch
 statistic), as the reference wraps every PHiSeg conv. Statistics are taken
-in float32 over every axis but the trailing channel axis (NHWC); the
+in float32 over every axis but the trailing channel axis (NHWC or NDHWC); the
 running variance takes the unbiased batch variance, ``n / (n - 1)``; eval
 mode normalises with the running statistics; the output has the input's
 dtype. ``weight``/``bias`` are float32 parameters, ``running_mean``/
@@ -58,14 +58,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Normalise NHWC ``x`` over (N, H, W); in train mode the running
-        statistics update in place (no host sync), except in a recompute."""
-        # NHWC permuted to NCHW is a channels_last view, taken without a copy
+        """Normalise NHWC or NDHWC ``x`` over every axis but the channels; in
+        train mode the running statistics update in place (no host sync),
+        except in a recompute."""
+        # channels moved to axis 1: a channels_last(_3d) view, taken without a copy
         mean, var = self.running_mean, self.running_var
         if self.training and is_recomputing():
             # throwaway copies take the update: the same op saves the same
             # tensors for the backward as in the forward, which checkpoint checks
             mean, var = mean.clone(), var.clone()
-        y = F.batch_norm(x.float().permute(0, 3, 1, 2), mean, var, self.weight, self.bias, self.training,
+        y = F.batch_norm(x.float().movedim(-1, 1), mean, var, self.weight, self.bias, self.training,
                          self.momentum, self.eps)
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+        return y.movedim(1, -1).to(x.dtype)

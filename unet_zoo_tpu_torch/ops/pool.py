@@ -1,13 +1,13 @@
 """Ceil-mode average pool, the twin of ``unet_zoo_tpu.ops.pool.avg_pool_ceil``.
 
-torch's ``AvgPool2d(kernel=2, stride=2, ceil_mode=True)`` divides each window
-by the number of in-bounds elements, which is the semantics the JAX op
-reproduces by hand; here the library op is used directly. Its gradient is
-autograd's through ``F.avg_pool2d``, which spreads each output's cotangent
-over its window with the same 1/count: the JAX package's custom VJP
-(``unet_zoo_tpu/ops/pool.py``, the pre-transposed averaging matrices)
-computes the same map, and ``tests/test_torch_ops.py`` holds the two
-together.
+torch's ``AvgPool2d``/``AvgPool3d(kernel=2, stride=2, ceil_mode=True)``
+divides each window by the number of in-bounds elements, which is the
+semantics the JAX op reproduces by hand; here the library op is used
+directly. Its gradient is autograd's through ``F.avg_pool2d``/``3d``, which
+spreads each output's cotangent over its window with the same 1/count: the
+JAX package's custom VJP (``unet_zoo_tpu/ops/pool.py``, the pre-transposed
+averaging matrices) computes the same map, and ``tests/test_torch_ops.py``
+and ``tests/test_torch_ops3d.py`` hold the two together.
 """
 
 from __future__ import annotations
@@ -15,14 +15,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+_POOLS = {4: F.avg_pool2d, 5: F.avg_pool3d}
+
 
 def avg_pool_ceil(x: torch.Tensor) -> torch.Tensor:
-    """Ceil-mode 2x2, stride-2 average pool over the spatial axes of NHWC input.
+    """Ceil-mode 2x2(x2), stride-2 average pool over the spatial axes of NHWC
+    or NDHWC input.
 
-    A contiguous NHWC tensor permuted to NCHW is a ``channels_last`` view,
-    which ``F.avg_pool2d`` takes and returns without a copy.
+    A contiguous channels-last tensor with its channels moved to axis 1 is a
+    ``channels_last``/``channels_last_3d`` view, which the library pool takes
+    and returns without a copy. The library op needs every spatial axis at
+    2 or more (the JAX op also pools an axis of 1); ``ExperimentConfig.validate``
+    keeps every pooled axis there.
     """
-    if x.ndim != 4:
-        raise ValueError(f"avg_pool_ceil takes NHWC input, got shape {tuple(x.shape)}")
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
-    return y.permute(0, 2, 3, 1)
+    if x.ndim not in _POOLS:
+        raise ValueError(f"avg_pool_ceil takes NHWC or NDHWC input, got shape {tuple(x.shape)}")
+    return _POOLS[x.ndim](x.movedim(-1, 1), 2, 2, ceil_mode=True).movedim(1, -1)

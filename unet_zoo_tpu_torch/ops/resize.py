@@ -2,11 +2,13 @@
 
 The JAX package contracts small interpolation matrices because gathers are
 slow on a TPU; ``F.interpolate`` has the same semantics (the JAX tests pin
-their op against it) and is used directly. Sizes are always explicit, never
-a ``scale_factor``, so odd pyramids resize to the skip's exact shape.
-Gradients are autograd's through ``F.interpolate``: the transpose of the
-same interpolation map that the JAX package's custom VJP contracts with
-pre-transposed matrices; ``tests/test_torch_ops.py`` holds the two together.
+their op against it) and is used directly, bilinear on NHWC and trilinear on
+NDHWC input. Sizes are always explicit, never a ``scale_factor``, so odd
+pyramids resize to the skip's exact shape. Gradients are autograd's through
+``F.interpolate``: the transpose of the same interpolation map that the JAX
+package's custom VJP contracts with pre-transposed matrices;
+``tests/test_torch_ops.py`` and ``tests/test_torch_ops3d.py`` hold the two
+together.
 """
 
 from __future__ import annotations
@@ -16,26 +18,24 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+_LINEAR = {4: "bilinear", 5: "trilinear"}
 
-def _check_nhwc(x: torch.Tensor, out_size: Sequence[int]) -> None:
-    if x.ndim != 4 or len(out_size) != 2:
+
+def _check(x: torch.Tensor, out_size: Sequence[int]) -> None:
+    if x.ndim not in _LINEAR or len(out_size) != x.ndim - 2:
         raise ValueError(
-            f"expected NHWC input and a 2-d size, got {tuple(x.shape)} -> {tuple(out_size)}"
+            f"expected NHWC or NDHWC input and a size per spatial axis, got {tuple(x.shape)} -> {tuple(out_size)}"
         )
 
 
 def resize_linear(x: torch.Tensor, out_size: Sequence[int], align_corners: bool) -> torch.Tensor:
-    """Bilinear resize of NHWC input to the spatial size ``out_size``."""
-    _check_nhwc(x, out_size)
-    y = F.interpolate(
-        x.permute(0, 3, 1, 2), size=tuple(out_size), mode="bilinear",
-        align_corners=align_corners,
-    )
-    return y.permute(0, 2, 3, 1)
+    """Bi- or trilinear resize of NHWC / NDHWC input to the spatial size ``out_size``."""
+    _check(x, out_size)
+    y = F.interpolate(x.movedim(-1, 1), size=tuple(out_size), mode=_LINEAR[x.ndim], align_corners=align_corners)
+    return y.movedim(1, -1)
 
 
 def upsample_nearest(x: torch.Tensor, out_size: Sequence[int]) -> torch.Tensor:
-    """Nearest-neighbour resize of NHWC input (torch 'nearest' index rule)."""
-    _check_nhwc(x, out_size)
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_size), mode="nearest")
-    return y.permute(0, 2, 3, 1)
+    """Nearest-neighbour resize of NHWC / NDHWC input (torch 'nearest' index rule)."""
+    _check(x, out_size)
+    return F.interpolate(x.movedim(-1, 1), size=tuple(out_size), mode="nearest").movedim(1, -1)

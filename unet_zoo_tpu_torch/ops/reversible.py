@@ -1,11 +1,11 @@
-"""Reversible conv sequences, the twin of ``unet_zoo_tpu.ops.reversible`` (2D, NHWC).
+"""Reversible conv sequences, the twin of ``unet_zoo_tpu.ops.reversible`` (2D NHWC and 3D NDHWC).
 
 RevPHiSeg's memory lever (arXiv:2008.06999, after revtorch): the C channels
 split into two halves and each coupling block computes
 
     y1 = x1 + f(x2),    y2 = x2 + g(y1),
 
-where f and g are conv3x3 + BatchNorm + ReLU on C/2 channels (``_fg``). The
+where f and g are conv3x3(x3) + BatchNorm + ReLU on C/2 channels (``_fg``). The
 backward reconstructs each block's input from its output,
 
     x2 = y2 - g(y1),    x1 = y1 - f(x2),
@@ -24,7 +24,7 @@ eval mode it runs the plain chain on the running statistics.
 
 The JAX package packs the halves to rank 3 and scans over the blocks to fix
 a TPU's lane padding and scheduling (``_pack``, ``lax.scan``); a GPU needs
-neither, so the blocks here are a Python loop over NHWC halves.
+neither, so the blocks here are a Python loop over channels-last halves.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ Stats = Tuple[torch.Tensor, torch.Tensor]  # mean, variance
 
 def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
         ema: Optional[Stats] = None) -> Tuple[torch.Tensor, Stats]:
-    """The coupling function on NHWC ``x``: conv3x3 with operands in
+    """The coupling function on NHWC or NDHWC ``x``: conv3x3(x3) with operands in
     ``x.dtype``, the bias added in float32 with an exact zero gradient (the
     JAX package stops it; Adam still decays it), BatchNorm in float32 (float64
     for a float64 ``x``; eps 1e-3), ReLU, cast back to ``x.dtype``. In train
@@ -56,11 +56,13 @@ def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.
     ``max(E[y^2] - E[y]^2, 0)`` and returns (out, (mean, unbiased
     variance)); else it normalises with ``ema`` and returns it. It touches no
     buffer, so the backward can run it again."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype), padding=1).permute(0, 2, 3, 1)
+    conv = F.conv2d if x.ndim == 4 else F.conv3d
+    y = conv(x.movedim(-1, 1), kernel.to(x.dtype), padding=1).movedim(1, -1)
     yf = y.to(torch.promote_types(y.dtype, torch.float32)) + _ZeroGrad.apply(bias)
     if ema is None:
-        mean = yf.mean((0, 1, 2))
-        var = torch.clamp_min(yf.square().mean((0, 1, 2)) - mean.square(), 0.0)
+        axes = tuple(range(yf.ndim - 1))
+        mean = yf.mean(axes)
+        var = torch.clamp_min(yf.square().mean(axes) - mean.square(), 0.0)
         n = yf.numel() // yf.shape[-1]
         stats = (mean, var * (n / max(n - 1, 1)))
     else:
@@ -153,7 +155,7 @@ class ReversibleSequence(nn.Module):
     then ``depth`` coupling blocks over a C/2 + C/2 split.
 
     Parameters per block i: ``block{i}_{f,g}_{kernel,bias,scale,shift}``
-    (kernels OIHW (C/2, C/2, 3, 3), float32); running statistics
+    (kernels OIHW (C/2, C/2, 3, 3), or OIDHW for ``ndim`` 3, float32); running statistics
     ``block{i}_{f,g}_{mean,var}``: the JAX module's leaf names. ``dtype`` is
     the compute dtype of ``initial_conv``; the blocks compute in their
     input's dtype, as in the JAX package.
@@ -165,7 +167,8 @@ class ReversibleSequence(nn.Module):
     """
 
     def __init__(self, in_channels: int, features: int, depth: int = 3, init_scheme: str = "torch_default",
-                 dtype: Optional[torch.dtype] = None, device=None, generator: Optional[torch.Generator] = None):
+                 dtype: Optional[torch.dtype] = None, device=None, generator: Optional[torch.Generator] = None,
+                 ndim: int = 2):
         super().__init__()
         if features % 2:
             raise ValueError(f"a reversible sequence splits its channels in two: features must be even, got {features}")
@@ -173,16 +176,16 @@ class ReversibleSequence(nn.Module):
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.depth = depth
         self.initial_conv = (ConvBNAct(in_channels, features, kernel_size=1, init_scheme=init_scheme, dtype=dtype,
-                                       device=device, generator=generator)
+                                       device=device, generator=generator, ndim=ndim)
                              if in_channels != features else None)
         c = features // 2
         kernel_init, bias_init = init_lib.SCHEMES[init_scheme]
         if bias_init is None:
-            bias_init = init_lib.torch_default_conv_bias(9 * c)
+            bias_init = init_lib.torch_default_conv_bias(3 ** ndim * c)
         for i in range(depth):
             for fg in "fg":
                 name = f"block{i}_{fg}"
-                for leaf, value in (("kernel", kernel_init((c, c, 3, 3), generator)),
+                for leaf, value in (("kernel", kernel_init((c, c) + (3,) * ndim, generator)),
                                     ("bias", bias_init((c,), generator)),
                                     ("scale", torch.ones(c)), ("shift", torch.zeros(c))):
                     self.register_parameter(f"{name}_{leaf}", nn.Parameter(value.to(device)))

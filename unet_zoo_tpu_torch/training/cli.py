@@ -3,12 +3,15 @@
 
     python -m unet_zoo_tpu_torch.train EXP [--local] [--iterations N] [--log-root DIR] [--resume [CKPT]]
     python -m unet_zoo_tpu_torch.eval  EXP [--local] [--checkpoint best_loss] [--num-repeats R] [--num-samples N]
+                                           [--export-predictions]
 
 EXP is a registry name (e.g. ``phiseg_7_5_12``) or the path of a ``.py``
 file that defines ``config = ExperimentConfig(...)``; the definition is
 copied into the log directory. Both run on the CUDA card unless given
-``--device cpu``, and raise where there is no card. The JAX CLI's mesh
-flags (multi-device) and its image and prediction exports are not ported.
+``--device cpu``, and raise where there is no card. ``--export-predictions``
+(BraTS) writes each evaluated volume's label map as NIfTI after the test
+sweep. The JAX CLI's mesh flags (multi-device) and its image export are not
+ported.
 """
 
 from __future__ import annotations
@@ -115,14 +118,21 @@ def eval_main(argv=None) -> int:
     p.add_argument("--checkpoint", default="best_loss")
     p.add_argument("--num-repeats", type=int, default=10)
     p.add_argument("--num-samples", type=int, default=10)
+    p.add_argument("--export-predictions", action="store_true",
+                   help="BraTS: write per-case .nii.gz label-map predictions (largest connected component a label, "
+                        "reassembled to the original geometry where the cache carries crop offsets)")
     args = p.parse_args(argv)
 
     cfg, sys_cfg, log_dir = _setup(args)
+    if args.export_predictions and not (cfg.is_3d and cfg.data_loader == "brats"):
+        p.error("--export-predictions is a BraTS (3D) flow")
 
     trainer = Trainer(cfg, device=args.device, sys_config=sys_cfg, log_dir=log_dir)
     try:
         data = _build_data(cfg, sys_cfg)
         trainer.test(data, num_repeats=args.num_repeats, num_samples=args.num_samples, checkpoint=args.checkpoint)
+        if args.export_predictions:
+            trainer.export_predictions(data, num_samples=args.num_samples)
     finally:
         trainer.close()
     return 0

@@ -1,6 +1,6 @@
 """The training harness, the twin of ``unet_zoo_tpu.training.trainer.Trainer``
-(the U-Net, ProbUNet and PHiSeg 2D families, 2D device augmentation, one
-card).
+(the U-Net, ProbUNet, PHiSeg and PHiSeg3D families, 2D and 3D device
+augmentation, one card).
 
 The train step, all on the device and with no host sync: augmentation
 (draws from the state's generator) -> the model in train mode (the U-Net's
@@ -16,7 +16,14 @@ to log), periodic multi-sample validation with GED, variance-NCC and Dice
 on the device (``validate``) and best-per-metric checkpoints, the
 quantitative test sweep (``test``) with its npz dump, and full-state
 checkpoints under the reference's names (``validation_ckpt``,
-``best_{dice,loss,ged,ncc}``, ``last``).
+``best_{dice,loss,ged,ncc}``, ``last``). A 3D BraTS experiment (one-hot
+WT/TC/ET labels) validates and tests a volume at a time (``eval_volume``:
+per-region Dice, sensitivity and specificity on the device, HD95 on the
+host; ``validate_brats``, ``test_brats``) and exports its predictions as
+NIfTI label maps (``export_predictions``). The JAX package enqueues every
+volume before it fetches any; here at most ``EVAL_WINDOW`` volumes are in
+flight, each fetched into page-locked memory behind an event, so the host
+reads one volume while the card computes the next.
 
 Evaluation draws its z noise from a device generator seeded from (seed,
 step, salt, image index) (``eval_generator``), never from the train
@@ -28,18 +35,26 @@ generator seeded as the JAX package seeds it (``_eval_rng``).
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import math
 import os
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from unet_zoo_tpu_torch import metrics as M
-from unet_zoo_tpu_torch.data.augment import AugmentParams, sample_augment_params, warp_batch_2d
+from unet_zoo_tpu_torch.data.augment import (
+    Augment3DParams,
+    AugmentParams,
+    sample_augment_3d_params,
+    sample_augment_params,
+    warp_batch_2d,
+    warp_batch_3d,
+)
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig
 from unet_zoo_tpu_torch.models.registry import get_model, resolve_device
 from unet_zoo_tpu_torch.ops.conv import chain_route
@@ -52,6 +67,17 @@ log = logging.getLogger(__name__)
 # the scalar results of one evaluated image, in the order of a row of
 # ``Trainer.evaluate_images``; the per-class Dice follows them
 EVAL_SCALARS = ("ged", "ncc", "loss", "kl", "recon")
+# BraTS volumes evaluated ahead of the one the host reads
+EVAL_WINDOW = 2
+# samples a BraTS volume decodes at a time: at 128^3 a 16-sample fold decoded
+# whole peaks near 47 GiB of the card's 80, 4 at a time near 14 GiB, in the
+# same time (``chip_smoke.py`` phase 10 (c), PERF.md)
+VOLUME_SAMPLE_CHUNK = 4
+BRATS_REGIONS = ("wt", "tc", "et")
+# the latent families: z noise in the step, a loss on the mask
+LATENT_FAMILIES = ("phiseg", "phiseg3d", "prob_unet")
+
+AnyAugmentParams = Union[AugmentParams, Augment3DParams]
 
 
 def image_metrics(logits: torch.Tensor, y_all: torch.Tensor, y_chosen: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -149,10 +175,19 @@ class Trainer:
     # the phases of one step, in order (``chip_smoke.py`` times each)
 
     def augment(self, x: torch.Tensor, y: torch.Tensor,
-                aug_params: Optional[AugmentParams] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Move the batch to the device and warp it with ``aug_params``, or
+                aug_params: Optional[AnyAugmentParams] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Move the batch to the device and warp it with ``aug_params``
+        (``AugmentParams``, or ``Augment3DParams`` for a 3D experiment), or
         with draws from the state's generator."""
         x, y = x.to(self.device), y.to(self.device)
+        if self.cfg.is_3d:
+            opts = self.cfg.augmentation_options_3d
+            if opts is None:
+                return x, y
+            if aug_params is None:
+                aug_params = sample_augment_3d_params(self.state.generator, x.shape[0], x.shape[-1], opts,
+                                                      self.device)
+            return warp_batch_3d(x, y, aug_params, opts)
         opts = self.cfg.augmentation_options
         if opts is None:
             return x, y
@@ -169,7 +204,7 @@ class Trainer:
         tensor."""
         model = self.state.model
         model.train()
-        if self.cfg.model in ("phiseg", "prob_unet"):
+        if self.cfg.model in LATENT_FAMILIES:
             return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
         return model.loss(model(x), y)
 
@@ -187,12 +222,13 @@ class Trainer:
         state.optimizer.step()
         state.step += 1
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor, aug_params: Optional[AugmentParams] = None,
+    def train_step(self, x: torch.Tensor, y: torch.Tensor, aug_params: Optional[AnyAugmentParams] = None,
                    z_eps=None) -> Dict[str, torch.Tensor]:
-        """One step on images x (B, H, W, C) float and labels y (B, H, W)
-        int. ``aug_params`` and ``z_eps`` (ProbUNet, PHiSeg) replace the step's own
-        draws (tests inject the JAX package's). Returns the loss's aux dict
-        as device tensors."""
+        """One step on images x (B, *S, C) float and labels y: (B, *S) int,
+        or for a 3D BraTS experiment (B, *S, 3) one-hot float WT/TC/ET.
+        ``aug_params`` (``AugmentParams``, ``Augment3DParams``) and ``z_eps``
+        (ProbUNet, PHiSeg) replace the step's own draws (tests inject the JAX
+        package's). Returns the loss's aux dict as device tensors."""
         x, y = self.augment(x, y, aug_params)
         loss, aux = self.forward_loss(x, y, z_eps)
         self.backward(loss)
@@ -326,8 +362,11 @@ class Trainer:
         """Saves ``validation_ckpt``, evaluates ``num_validation_images``
         validation images with ``validation_samples`` samples (and as many
         loss repeats), fetches the results once, keeps the best-per-metric
-        checkpoints, writes the aggregates and returns them."""
+        checkpoints, writes the aggregates and returns them. A 3D BraTS
+        experiment goes to ``validate_brats``."""
         cfg = self.cfg
+        if self._is_brats():
+            return self.validate_brats(data)
         t0 = time.time()
         self.save_model("validation_ckpt")
         self._log_memory()
@@ -383,13 +422,11 @@ class Trainer:
         samples an image, each pass fetched once. Writes
         ``test_results.npz`` (``ged`` and ``ncc`` (R, N), ``dice`` (R, N,
         C)) and returns the means and standard deviations and the seconds
-        it took."""
+        it took. A 3D BraTS experiment goes to ``test_brats``."""
         cfg = self.cfg
-        if checkpoint is not None:
-            path = os.path.join(self.log_dir, checkpoint)
-            if not os.path.exists(path):
-                raise FileNotFoundError(f"checkpoint '{checkpoint}' not found in {self.log_dir}")
-            restore_checkpoint(path, self.state)
+        if self._is_brats():
+            return self.test_brats(data, num_repeats, num_samples, checkpoint, save_npz)
+        self._restore_for_test(checkpoint)
         n_images = data.test.images.shape[0]
         test_rng, annotators = self._eval_rng(salt=1), self._annotators()
         ged_mat = np.zeros((num_repeats, n_images))
@@ -414,6 +451,214 @@ class Trainer:
         if save_npz:
             np.savez(os.path.join(self.log_dir, "test_results.npz"), ged=ged_mat, ncc=ncc_mat, dice=dice_mat)
         return results
+
+    # BraTS (3D) evaluation
+
+    def _is_brats(self) -> bool:
+        return self.cfg.is_3d and self.cfg.data_loader == "brats"
+
+    def _restore_for_test(self, checkpoint: Optional[str]) -> None:
+        if checkpoint is not None:
+            path = os.path.join(self.log_dir, checkpoint)
+            if not os.path.exists(path):
+                raise FileNotFoundError(f"checkpoint '{checkpoint}' not found in {self.log_dir}")
+            restore_checkpoint(path, self.state)
+
+    def eval_volume(self, x: torch.Tensor, y: torch.Tensor, n_samples: int, salt: int = 0, index: int = 0,
+                    eps=None, loss_eps=None) -> Dict[str, torch.Tensor]:
+        """One BraTS volume's evaluation, the twin of the JAX
+        ``_eval_volume_fn``: x (1, D, H, W, C) float and its one-hot WT/TC/ET
+        labels y (1, D, H, W, 3) on the device. The mean softmax of
+        ``model.sample(x, n_samples)`` (float32; decoded
+        ``VOLUME_SAMPLE_CHUNK`` samples at a time) thresholded at 0.5 is the
+        prediction; per region its Dice, sensitivity and specificity against
+        y, and the eval-mode loss of ``model(x, y)``. The z noise comes from
+        ``eval_generator(salt, index)``, or ``eps`` (for ``sample``) and
+        ``loss_eps`` ((posterior, prior) lists) replace it. Makes no host
+        sync; returns device tensors ``dice``, ``sens``, ``spec`` (3,),
+        ``loss``, ``kl``, ``recon`` and the bool ``pred_bin`` (D, H, W, 3)."""
+        model = self.state.model
+        generator = self.eval_generator(salt, index)
+        post_eps, prior_eps = loss_eps if loss_eps is not None else (None, None)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                logits = model.sample(x, n_samples, eps=eps, generator=generator, chunk=VOLUME_SAMPLE_CHUNK)
+                mean_probs = torch.softmax(logits[0].float(), dim=-1).mean(0)
+                regions = range(y.shape[-1])
+                out = {
+                    "dice": torch.stack([M.dice_binary(mean_probs[..., c] > 0.5, y[0, ..., c]) for c in regions]),
+                    "sens": torch.stack([M.sensitivity(mean_probs[..., c], y[0, ..., c]) for c in regions]),
+                    "spec": torch.stack([M.specificity(mean_probs[..., c], y[0, ..., c]) for c in regions]),
+                }
+                loss, aux = model.loss(model(x, y, post_eps=post_eps, prior_eps=prior_eps, generator=generator), y)
+        finally:
+            model.train(was_training)
+        out.update(loss=loss, kl=aux["kl"], recon=aux["recon"], pred_bin=mean_probs > 0.5)
+        return out
+
+    def _to_host(self, out: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
+        """Copies of device results into page-locked host memory, issued now,
+        and the event that marks them done (None on the CPU)."""
+        host = {k: v.to("cpu", non_blocking=True) for k, v in out.items()}
+        if self.device.type != "cuda":
+            return host, None
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _brats_eval_split(self, data) -> str:
+        """The reference's split never fills 'test', so the quantitative
+        evaluation falls back to the validation split where 'test' is empty."""
+        if data.num_examples("test") > 0:
+            return "test"
+        log.info("BraTS test split is empty; evaluating the validation split")
+        return "validation"
+
+    def stream_volumes(self, data, split: str, n: int, n_samples: int, salt: int,
+                       first_index: int = 0) -> Iterator[tuple]:
+        """``eval_volume`` of volumes 0..n-1 of ``split``, each with noise
+        index ``first_index + i``, at most ``EVAL_WINDOW`` in flight: yields
+        (i, host results, image, labels, pid) in order, each volume's results
+        read once its copies are done, while the card works on the next."""
+        pending = collections.deque()
+        for ii in range(n):
+            img, lbl, pid = data.get(ii, split)
+            out = self.eval_volume(self._to_device(img[None]), self._to_device(lbl[None]), n_samples, salt,
+                                   first_index + ii)
+            pending.append((ii, *self._to_host(out), img, lbl, pid))
+            while len(pending) >= EVAL_WINDOW or (ii == n - 1 and pending):
+                jj, host, event, img_j, lbl_j, pid_j = pending.popleft()
+                if event is not None:
+                    event.synchronize()
+                yield jj, host, img_j, lbl_j, pid_j
+
+    @staticmethod
+    def _hd95_row(host: Dict[str, torch.Tensor], lbl: np.ndarray) -> List[float]:
+        pred_bin = host["pred_bin"].numpy()
+        return [M.hd95(pred_bin[..., c], lbl[..., c]) for c in range(lbl.shape[-1])]
+
+    def validate_brats(self, data) -> Dict[str, float]:
+        """The BraTS validation, the twin of the JAX ``validate_brats``: saves
+        ``validation_ckpt``, evaluates ``num_validation_images`` volumes with
+        ``validation_samples`` samples each, HD95 a region on the host, keeps
+        ``best_dice`` and ``best_loss``, writes the aggregates (per-region
+        Dice, sensitivity, specificity and HD95, whose mean skips the -1 of
+        an empty mask) and returns them."""
+        cfg = self.cfg
+        t0 = time.time()
+        self.save_model("validation_ckpt")
+        self._log_memory()
+        n_total = data.num_examples("validation")
+        n_val = n_total if cfg.num_validation_images == "all" else min(cfg.num_validation_images, n_total)
+        rows, hd95_rows = [], []
+        for ii, host, img, lbl, _ in self.stream_volumes(data, "validation", n_val, cfg.validation_samples, salt=0):
+            hd95_rows.append(self._hd95_row(host, lbl))
+            rows.append(host)
+            if ii < 2 and self.validation_writer.tensorboard:  # mid-depth slice: image / GT WT / predicted WT
+                mid = img.shape[0] // 2
+                x_sl = img[mid, ..., 0]
+                lo, hi = float(x_sl.min()), float(x_sl.max())
+                panel = [(x_sl - lo) / max(hi - lo, 1e-8), lbl[mid, ..., 0],
+                         host["pred_bin"][mid, ..., 0].numpy().astype(np.float32)]
+                self.validation_writer.image(self.iteration, f"panel_{ii}", np.concatenate(panel, axis=1))
+        stacked = {k: np.stack([r[k].numpy() for r in rows]) for k in ("dice", "sens", "spec")}
+        hd95 = np.ma.masked_equal(np.asarray(hd95_rows), -1.0)  # -1 where a mask was empty
+        agg = {k: float(np.mean([r[k].item() for r in rows])) for k in ("loss", "kl", "recon")}
+        agg["dice"] = float(stacked["dice"].mean())
+        for c, region in enumerate(BRATS_REGIONS):
+            agg[f"dice_{region}"] = float(stacked["dice"][:, c].mean())
+        for name, key in (("sensitivity", "sens"), ("specificity", "spec")):
+            for c, region in enumerate(BRATS_REGIONS):
+                agg[f"{name}_{region}"] = float(stacked[key][:, c].mean())
+        for c, region in enumerate(BRATS_REGIONS):
+            agg[f"hd95_{region}"] = float(np.ma.filled(hd95[:, c].mean(), -1.0))
+        log.info("brats validation @%d: dice WT %.4f TC %.4f ET %.4f sens WT %.4f spec WT %.4f hd95 WT %.2f "
+                 "loss %.4f (%.1fs)", self.iteration, agg["dice_wt"], agg["dice_tc"], agg["dice_et"],
+                 agg["sensitivity_wt"], agg["specificity_wt"], agg["hd95_wt"], agg["loss"], time.time() - t0)
+        if agg["dice"] >= self.best["dice"]:
+            self.best["dice"] = agg["dice"]
+            self.save_model("best_dice")
+        if agg["loss"] <= self.best["loss"]:
+            self.best["loss"] = agg["loss"]
+            self.save_model("best_loss")
+        self.validation_writer.scalars(self.iteration, agg)
+        return agg
+
+    def test_brats(self, data, num_repeats: int = 10, num_samples: int = 10, checkpoint: Optional[str] = "best_loss",
+                   save_npz: bool = True) -> Dict[str, object]:
+        """The quantitative BraTS sweep, the twin of the JAX ``test_brats``:
+        restores ``checkpoint``, then ``num_repeats`` passes over the
+        evaluation split (``_brats_eval_split``) with ``num_samples`` samples
+        a volume. Writes ``brats_test_results.npz`` (``dice``,
+        ``sensitivity``, ``specificity`` and ``hd95``, each (R, N, 3)) and
+        returns the Dice's mean and standard deviation, the per-region means
+        and the seconds it took."""
+        self._restore_for_test(checkpoint)
+        split = self._brats_eval_split(data)
+        n_vols, nreg = data.num_examples(split), self.cfg.n_classes
+        dice, sens, spec, hd95 = (np.zeros((num_repeats, n_vols, nreg)) for _ in range(4))
+        t0 = time.time()
+        for rep in range(num_repeats):
+            for ii, host, _, lbl, _ in self.stream_volumes(data, split, n_vols, num_samples, salt=1,
+                                                           first_index=rep * n_vols):
+                dice[rep, ii], sens[rep, ii], spec[rep, ii] = (host[k].numpy() for k in ("dice", "sens", "spec"))
+                hd95[rep, ii] = self._hd95_row(host, lbl)
+        hd95_valid = np.ma.masked_equal(hd95, -1.0)
+        results = {
+            "dice": (float(dice.mean()), float(dice.std())),
+            "dice_per_region": dice.mean(axis=(0, 1)).tolist(),
+            "sensitivity_per_region": sens.mean(axis=(0, 1)).tolist(),
+            "specificity_per_region": spec.mean(axis=(0, 1)).tolist(),
+            "hd95_per_region": [float(np.ma.filled(hd95_valid[:, :, c].mean(), -1.0)) for c in range(nreg)],
+            "seconds": time.time() - t0,
+        }
+        log.info("brats test (%s split): dice %.4f±%.4f per-region %s hd95 %s", split, *results["dice"],
+                 np.round(results["dice_per_region"], 4), np.round(results["hd95_per_region"], 2))
+        if save_npz:
+            np.savez(os.path.join(self.log_dir, "brats_test_results.npz"), dice=dice, sensitivity=sens,
+                     specificity=spec, hd95=hd95)
+        return results
+
+    def export_predictions(self, data, num_samples: int = 10, out_dir: Optional[str] = None,
+                           split: Optional[str] = None) -> List[str]:
+        """The BraTS prediction export, the twin of the JAX
+        ``export_predictions``: each volume's thresholded mean prediction
+        becomes a BraTS label map (ET 4, TC without ET 1, WT without TC 2),
+        keeps each label's largest connected component, goes back into the
+        original geometry where the cache has crop offsets, and is written
+        as ``prediction_<pid>.nii.gz`` (uint8) in ``out_dir`` (default
+        ``predictions`` in the log directory). The noise is the
+        validation's. Returns the paths."""
+        from unet_zoo_tpu_torch.data.brats import reassemble_to_original
+        from unet_zoo_tpu_torch.utils.nii import save_nii
+        from unet_zoo_tpu_torch.utils.postprocess import keep_largest_connected_components
+
+        out_dir = out_dir or os.path.join(self.log_dir, "predictions")
+        os.makedirs(out_dir, exist_ok=True)
+        split = split or self._brats_eval_split(data)
+        paths = []
+        for ii, host, _, _, pid in self.stream_volumes(data, split, data.num_examples(split), num_samples, salt=0):
+            wt, tc, et = (host["pred_bin"][..., c].numpy() for c in range(3))
+            labels = np.zeros(wt.shape, np.uint8)
+            labels[wt] = 2
+            labels[tc] = 1
+            labels[et] = 4
+            labels = keep_largest_connected_components(labels)
+            offs = data.offsets(ii, split)
+            if offs is not None:
+                lo, hi, orig_shape = offs
+                labels = reassemble_to_original(labels, tuple(orig_shape), tuple(lo), tuple(hi))
+            else:
+                log.info("no crop offsets in the cache; exporting pid %d on the preprocessed %s grid", pid,
+                         labels.shape)
+            path = os.path.join(out_dir, f"prediction_{pid}.nii.gz")
+            save_nii(path, labels.astype(np.uint8))
+            paths.append(path)
+        log.info("wrote %d predictions to %s", len(paths), out_dir)
+        return paths
+
 
     # checkpoints and observability
 
