@@ -158,7 +158,34 @@ Phases, each printing its own lines:
    checkpoints), ``test`` (``test_brats``, 1 repeat, the npz schema) and
    ``export_predictions``, whose ``.nii.gz`` files read back through the
    port's ``load_nii`` in the original geometry with labels in {0, 1, 2, 4},
-   and HD95's host time for one region at 128^3.
+   and HD95's host time for one region at 128^3;
+11. the UZH prostate path (``phiseg_uzh_7_5_512``: PHiSeg 2D at filters
+   32/64/128/192/192/192/192, 5 latent levels, 3 classes, 6 annotators,
+   512x512, batch 12), which launches no hand-written kernel (every
+   sequence carries BatchNorm or is reversible): (a) the registered
+   architecture at 192x192 (``phiseg_uzh_7_5_192`` and
+   ``phiseg_uzh_rev_7_5_192``), batch 2, float32 with TF32 off, the same
+   weights and z noise on the card and the CPU, eval and train mode, at
+   phase 6's gates; (b) ``UZHProstateData`` over ``synthetic.uzh_arrays`` at
+   512x512 (the host ms of ``next_batch(12)`` as ``from_config`` builds the
+   providers and with the registry's ``resize_to``, whose zoom at factor 1
+   must leave the batch as it was), then UZH_STEPS registered steps (f32,
+   plain, the experiment's 3-label device augmentation): a gradient in every
+   parameter (an exact zero in each bias that BatchNorm follows), no host
+   sync inside a step, running statistics that move, a finite loss, 0
+   conv-chain launches, the peak above what the card held before the
+   trainer; then ms a step (events), the host's issue ms, the phases and
+   the peak of the plain, remat and reversible (``phiseg_uzh_rev_7_5_512``)
+   f32 steps with cuDNN's TF32 off and on, and the bf16 step: (c) whether
+   batch 12 fits the card in each mode (an out-of-memory step fails the
+   phase); (d) ``sample(x, 16)`` at batch 1 (ms, peak), one evaluation
+   window's upload peak beside the whole split's, ``validate`` over "all"
+   UZH_SPLITS[1] validation images (more than ``EVAL_IMAGE_WINDOW``; 16
+   samples; no host sync while a window is enqueued; s an image with and
+   without its checkpoint writes, peak; finite GED, NCC in [-1, 1], Dice in
+   [0, 1]) and ``test`` (1 repeat, ``dice`` (1, N, 3)); (e) ``UZHMatData``
+   over a ``scipy.io.savemat`` file of 160 slices at 192x192 (the 10/100/50
+   split, the batches, one train step at batch 2).
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -413,6 +440,15 @@ BRATS_TIME_STEPS = 2  # steps a timed round of ``step_times``
 BRATS_VAL_VOLUMES = 2
 BRATS_SAMPLES = 16  # the registered validation_samples
 MIB = 2 ** 20
+
+# phase 11: the UZH prostate path
+UZH_EXPERIMENT = "phiseg_uzh_7_5_512"
+UZH_REV_EXPERIMENT = "phiseg_uzh_rev_7_5_512"
+UZH_PARITY = ("phiseg_uzh_7_5_192", "phiseg_uzh_rev_7_5_192")  # (a) at the smallest registered resolution
+UZH_STEPS = 2  # the counted run of the registered step
+UZH_SPLITS = (12, 9, 2)  # synthetic train / validation / test slices; validation > EVAL_IMAGE_WINDOW
+UZH_SAMPLES = 16  # the registered validation_samples
+UZH_MAT_SLICES, UZH_MAT_SIZE = 160, 192  # (e): 10 train, 100 validation, 50 test
 
 
 def log(msg: str) -> None:
@@ -923,20 +959,25 @@ def phiseg_run(model, x, y, post_eps, prior_eps, train: bool):
     return out, aux, {n: p.grad for n, p in model.named_parameters()}
 
 
-def phiseg_parity(dev, experiment: str = PHISEG_EXPERIMENT, modes=(True, False)) -> None:
+def phiseg_parity(dev, experiment: str = PHISEG_EXPERIMENT, modes=(True, False), size: int = IMAGE) -> dict:
     """(a): float32, the same weights and z noise on the card and the CPU, in
-    train mode (``True`` in ``modes``) and eval mode (``False``)."""
+    train mode (``True`` in ``modes``) and eval mode (``False``), at
+    ``size`` x ``size``, with labels of every class of the experiment.
+    Returns each mode's readings."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.models.registry import get_model
 
-    cfg = get_experiment(experiment)
+    cfg = dataclasses.replace(get_experiment(experiment), image_size=(size, size))
     models = {d: get_model("phiseg", **cfg.model_kwargs(), device=d, generator=torch.Generator().manual_seed(5))
               for d in ("cpu", dev)}
     gen = torch.Generator().manual_seed(6)
-    x = torch.randn((PHISEG_PARITY_BATCH, IMAGE, IMAGE, 1), generator=gen)
-    y = (torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 9, 1, 4) > 0)[:, 0].long()
-    eps = {kind: [torch.randn((PHISEG_PARITY_BATCH, IMAGE >> (lvl + 2), IMAGE >> (lvl + 2), cfg.zdim), generator=gen)
-                  for lvl in range(cfg.latent_levels)] for kind in ("post", "prior")}
+    x = torch.randn((PHISEG_PARITY_BATCH, size, size, 1), generator=gen)
+    smooth = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 9, 1, 4)[:, 0]
+    y = sum((smooth > 0.1 * c).long() for c in range(cfg.n_classes - 1))  # smooth is ~N(0, 0.11^2)
+    first = len(cfg.filter_channels) - cfg.latent_levels
+    eps = {kind: [torch.randn((PHISEG_PARITY_BATCH, size >> (lvl + first), size >> (lvl + first), cfg.zdim),
+                              generator=gen) for lvl in range(cfg.latent_levels)] for kind in ("post", "prior")}
+    result = {}
     for train in modes:
         mode = "train" if train else "eval"
         if not train:  # the same running statistics on both sides
@@ -974,10 +1015,14 @@ def phiseg_parity(dev, experiment: str = PHISEG_EXPERIMENT, modes=(True, False))
         else:
             check(per_tensor <= PHISEG_EVAL_GRAD_OF_MAX, f"f32 eval gradient {worst_name}: {per_tensor:.3e} of max|g|")
             tol = f"tol {PHISEG_EVAL_GRAD_OF_MAX}"
-        log(f"[phiseg] {experiment} f32 {mode} mode, card vs CPU, batch {PHISEG_PARITY_BATCH}, {len(g_c)} gradients: outputs "
+        log(f"[phiseg] {experiment} f32 {mode} mode, card vs CPU, batch {PHISEG_PARITY_BATCH} {size}x{size}, "
+            f"{cfg.n_classes} classes, {len(g_c)} gradients: outputs "
             f"{out_err:.3e} of max|ref| (tol {of_max}), loss/kl/recon rel {loss_err:.3e} (tol {PHISEG_LOSS_RTOL}), "
             f"gradient rel L2 {l2:.3e}, worst tensor {worst_name} {per_tensor:.3e} of its max|g| ({tol})")
+        result[mode] = {"outputs_of_max": out_err, "loss_rel": loss_err, "grad_rel_l2": l2,
+                        "worst_tensor_of_max": per_tensor}
     del models
+    return result
 
 
 def step_times(trainer, x, y, n: int) -> dict:
@@ -1324,7 +1369,7 @@ def unet_eval_agrees(conv_chain, trainer, data, n_val: int) -> int:
     kernel path's launches."""
     from unet_zoo_tpu_torch.training.trainer import EVAL_SCALARS
 
-    _, images, labels = trainer._upload(data.validation, n_val)
+    images, labels = trainer._upload(data.validation, 0, n_val)
     val_rng, annotators = trainer._eval_rng(), trainer._annotators()
     chosen = [int(val_rng.choice(annotators)) for _ in range(n_val)]
     model, n = trainer.state.model, HARNESS_VALIDATION_SAMPLES
@@ -1454,8 +1499,8 @@ def harness(conv_chain, dev, card: str, log_root: str, names=("unet", PHISEG_EXP
         ckpt_s = time.perf_counter() - t0
         ckpt_mb = os.path.getsize(os.path.join(log_dir, "validation_ckpt")) / 2 ** 20
         log(f"[time] {name} bf16 validation, {n_val} images x {HARNESS_VALIDATION_SAMPLES} samples (and as many "
-            f"loss repeats): the evaluation (evaluate_images, enqueue and device work) {eval_s[0]:.3f} s, "
-            f"{eval_s[0] / n_val:.4f} s an image; the whole validate() with its checkpoints {val_s:.3f} s, "
+            f"loss repeats): the evaluation (evaluate_images, enqueue and device work) {sum(eval_s):.3f} s, "
+            f"{sum(eval_s) / n_val:.4f} s an image; the whole validate() with its checkpoints {val_s:.3f} s, "
             f"{val_s / n_val:.4f} s an image; one checkpoint ({ckpt_mb:.1f} MiB) takes {ckpt_s:.3f} s to write, "
             f"and this validation wrote {len(saves)} ({', '.join(saves)}) | card: {card}")
         if unet:
@@ -1477,7 +1522,7 @@ def harness(conv_chain, dev, card: str, log_root: str, names=("unet", PHISEG_EXP
             f"twice, the same test_results.npz {shapes}: GED {res['ged'][0]:.4f}±{res['ged'][1]:.4f} NCC "
             f"{res['ncc'][0]:.4f}±{res['ncc'][1]:.4f} Dice {res['dice'][0]:.4f}±{res['dice'][1]:.4f} "
             f"({res['seconds']:.2f} s a sweep)")
-        result[name] = {"eval_launches": eval_launches, "validation_eval_s_per_image": eval_s[0] / n_val,
+        result[name] = {"eval_launches": eval_launches, "validation_eval_s_per_image": sum(eval_s) / n_val,
                         "validation_with_checkpoints_s_per_image": val_s / n_val}
         del trainer
         torch.cuda.empty_cache()
@@ -2305,10 +2350,264 @@ def brats_phase(conv_chain, dev, card: str, log_root: str) -> dict:
             "hd95_s": hd_s}
 
 
+def uzh_step(dev, card: str, log_dir: str, x, y, label: str, experiment: str = UZH_EXPERIMENT, tf32: bool = False,
+             **changes) -> dict:
+    """One Trainer of ``experiment`` (with ``changes`` and cuDNN's TF32 as
+    ``tf32`` says): a warm-up step, then two steps each timed by events
+    around its phases; ``ms`` and ``phases_ms`` of the faster one, the
+    host's time to issue it (``host_ms``), and the peak MiB over both above
+    what the card held before this trainer was built."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment(experiment), **changes)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir, tensorboard=False, tf32=tf32)
+    loss = trainer.train_step(x, y)["loss"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        xa, ya = trainer.augment(x, y)
+        ev[1].record()
+        loss, _ = trainer.forward_loss(xa, ya)
+        ev[2].record()
+        trainer.backward(loss)
+        ev[3].record()
+        trainer.update(loss)
+        ev[4].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        runs.append({"ms": ev[0].elapsed_time(ev[4]), "host_ms": host_ms,
+                     "phases_ms": [ev[k].elapsed_time(ev[k + 1]) for k in range(4)]})
+    t = min(runs, key=lambda r: r["ms"])
+    t["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    check(bool(torch.isfinite(loss)), f"{label}: non-finite loss {loss.item()}")
+    phases = t["phases_ms"]
+    log(f"[time] {label} train step bs{x.shape[0]} {x.shape[1]}x{x.shape[2]} with 3-label augmentation: {t['ms']:.3f} "
+        f"ms, host issue {t['host_ms']:.3f} ms, peak {t['peak_mib']:.1f} MiB above the card's other state; phases, "
+        f"ms: augmentation {phases[0]:.3f}, forward+loss {phases[1]:.3f}, backward {phases[2]:.3f}, "
+        f"optimizer+plateau {phases[3]:.3f} | card: {card}")
+    trainer.close()
+    return t
+
+
+def uzh_validation(trainer, data, dev, card: str) -> dict:
+    """(d): ``sample(x, 16)`` of one image; the windowed upload's peak beside
+    the whole split's; ``validate`` over "all" validation images (16 samples,
+    6 annotators, 3 classes) with no host sync while it enqueues; ``test``
+    with 1 repeat."""
+    from unet_zoo_tpu_torch.training.trainer import EVAL_IMAGE_WINDOW
+
+    cfg, model, log_dir = trainer.cfg, trainer.state.model, trainer.log_dir
+    n_val, n_test = data.validation.images.shape[0], data.test.images.shape[0]
+    check(n_val > EVAL_IMAGE_WINDOW, f"{n_val} validation images, not more than a window ({EVAL_IMAGE_WINDOW})")
+    x = torch.from_numpy(np.asarray(data.validation.images[:1], dtype=np.float32)[..., None]).to(dev)
+    model.eval()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        sample_ms = min(cuda_ms(lambda: model.sample(x, UZH_SAMPLES), 1) for _ in range(2))
+        sample_peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    model.train()
+    size = x.shape[1]
+    log(f"[uzh] sample(x, {UZH_SAMPLES}) at batch 1, {size}x{size} f32: {sample_ms:.1f} ms, peak {sample_peak:.1f} MiB "
+        f"above the state | card: {card}")
+
+    # the upload: one window as validate makes it, against the whole split as int64 at once (the old way)
+    uploads = {}
+    for name, upload in (("window", lambda: trainer._upload(data.validation, 0, EVAL_IMAGE_WINDOW)),
+                         ("whole split", lambda: (
+                             torch.from_numpy(np.asarray(data.validation.images[:], np.float32)[..., None]).to(dev),
+                             torch.from_numpy(np.moveaxis(np.asarray(data.validation.labels[:]), -1, 1)
+                                              .astype(np.int64)).to(dev)))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        held = upload()
+        torch.cuda.synchronize()
+        uploads[name] = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+        del held
+    log(f"[uzh] evaluation upload at {size}x{size}, 6 annotators: one window of {EVAL_IMAGE_WINDOW} images "
+        f"(labels as uint8, widened on the card) peaks at {uploads['window']:.1f} MiB; the whole split of {n_val} "
+        f"at once with int64 labels {uploads['whole split']:.1f} MiB ({uploads['whole split'] / n_val:.2f} MiB an "
+        f"image, growing with the split) | card: {card}")
+
+    saves, save, eval_s = [], trainer.save_model, []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with no_sync_enqueue(trainer, eval_s), \
+            mock.patch.object(trainer, "save_model", lambda n: (saves.append(n), save(n))):
+        agg = trainer.validate(data)
+    val_s = time.perf_counter() - t0
+    val_peak = torch.cuda.max_memory_allocated(dev) / MIB
+    check(math.isfinite(agg["ged"]) and -1.0 <= agg["ncc"] <= 1.0 and 0.0 <= agg["dice"] <= 1.0
+          and all(math.isfinite(agg[k]) for k in ("loss", "kl", "recon")), f"UZH validation {agg}")
+    check(len(eval_s) == -(-n_val // EVAL_IMAGE_WINDOW), f"{len(eval_s)} windows for {n_val} images")
+    t0 = time.perf_counter()
+    res = trainer.test(data, num_repeats=1, num_samples=UZH_SAMPLES, checkpoint="best_loss")
+    test_s = (time.perf_counter() - t0) / n_test
+    with np.load(os.path.join(log_dir, "test_results.npz")) as f:
+        shapes = {k: f[k].shape for k in f.files}
+    check(shapes == {"ged": (1, n_test), "ncc": (1, n_test), "dice": (1, n_test, cfg.n_classes)},
+          f"test_results.npz {shapes}")
+    log(f"[uzh] validate, \"all\" {n_val} images x {UZH_SAMPLES} samples (and loss repeats) at {size}x{size} f32 in "
+        f"{len(eval_s)} windows of at most {EVAL_IMAGE_WINDOW}, no host sync while it enqueues: "
+        f"{sum(eval_s) / n_val:.3f} s an image for the evaluation, {val_s / n_val:.3f} s an image with its "
+        f"{len(saves)} checkpoint writes ({', '.join(saves)}), peak {val_peak:.1f} MiB of the card's whole "
+        f"allocation; ged {agg['ged']:.4f} ncc {agg['ncc']:.4f} dice {agg['dice']:.4f}; test (1 repeat, "
+        f"{UZH_SAMPLES} samples) {test_s:.3f} s an image, test_results.npz {shapes}, dice {res['dice'][0]:.4f} "
+        f"| card: {card}")
+    return {"sample16_ms": sample_ms, "sample16_peak_mib": sample_peak, "upload_window_mib": uploads["window"],
+            "upload_whole_split_mib": uploads["whole split"], "validation_eval_s_per_image": sum(eval_s) / n_val,
+            "validation_with_checkpoints_s_per_image": val_s / n_val, "validation_peak_mib": val_peak,
+            "test_s_per_image": test_s}
+
+
+def uzh_mat(dev, log_dir: str) -> None:
+    """(e): ``UZHMatData`` over a ``.mat`` written by ``scipy.io.savemat``: the
+    10/100/50 split, the batches' shapes and dtypes, one train step (batch
+    2 of the 10 train slices) of ``phiseg_uzh_7_5_192``."""
+    import scipy.io
+
+    from unet_zoo_tpu_torch.data import UZHMatData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    arrays = synthetic.uzh_arrays((UZH_MAT_SLICES, 0, 0), UZH_MAT_SIZE, seed=1)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_uzh_mat_") as tmp:
+        path = os.path.join(tmp, "uzh.mat")
+        scipy.io.savemat(path, {"images": arrays["images_train"], "labels": arrays["masks_train"]})
+        data = UZHMatData(path, seed=0)
+    sizes = [len(getattr(data, s).indices) for s in ("train", "validation", "test")]
+    check(sizes == [10, 100, 50], f"UZHMatData splits {sizes}")
+    for split in ("train", "validation", "test"):
+        x, y = getattr(data, split).next_batch(2)
+        check(x.shape == (2, UZH_MAT_SIZE, UZH_MAT_SIZE, 1) and x.dtype == np.float32
+              and y.shape == (2, UZH_MAT_SIZE, UZH_MAT_SIZE) and y.dtype == np.int32 and int(y.max()) <= 2,
+              f"UZHMatData {split} batch {x.shape} {x.dtype} {y.shape} {y.dtype}")
+    trainer = Trainer(get_experiment(UZH_PARITY[0]), dev, seed=0, log_dir=log_dir, tensorboard=False)
+    x, y = data.train.next_batch(2)
+    loss = trainer.train_step(trainer._to_device(x), trainer._to_device(y))["loss"]
+    check(bool(torch.isfinite(loss)) and trainer.state.step == 1, f"UZHMatData step: loss {loss.item()}")
+    trainer.close()
+    log(f"[uzh] UZHMatData over a savemat file of {UZH_MAT_SLICES} slices at {UZH_MAT_SIZE}x{UZH_MAT_SIZE}: splits "
+        f"{sizes}, batches (2, {UZH_MAT_SIZE}, {UZH_MAT_SIZE}, 1) float32 / (2, {UZH_MAT_SIZE}, {UZH_MAT_SIZE}) int32 "
+        f"in every split, one {UZH_PARITY[0]} f32 step at batch 2: loss {loss.item():.1f}")
+
+
+def uzh_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 11: the UZH prostate path (parity at 192^2, the registered
+    512^2 step in each memory mode and dtype, peaks with TF32 off and on,
+    the evaluation at 512^2, ``UZHMatData``)."""
+    from unet_zoo_tpu_torch.data import UZHProstateData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    t0 = time.perf_counter()
+    parity = {name: phiseg_parity(dev, name, size=get_experiment(name).image_size[0]) for name in UZH_PARITY}
+    torch.cuda.empty_cache()
+
+    # (b) the registered step: f32, plain, 512^2, batch 12, 3-label device augmentation
+    cfg = get_experiment(UZH_EXPERIMENT)
+    size, batch = cfg.image_size[0], cfg.batch_size
+    arrays = synthetic.uzh_arrays(UZH_SPLITS, size, seed=0)
+    data = UZHProstateData(arrays, seed=0)  # as from_config builds it: no resize_to
+    zoomed = UZHProstateData(arrays, resize_to=cfg.resize_to, seed=0)
+    batch_ms = {}
+    for name, d in (("from_config", data), ("resize_to", zoomed)):
+        t1 = time.perf_counter()
+        host_batches = [d.train.next_batch(batch) for _ in range(UZH_STEPS)]
+        batch_ms[name] = (time.perf_counter() - t1) / UZH_STEPS * 1e3
+    plain = UZHProstateData(arrays, seed=0).train
+    check(all(np.array_equal(a, b) for xy in host_batches for a, b in zip(xy, plain.next_batch(batch))),
+          "resize_to at factor 1 changed a batch")
+    log(f"[uzh] host time of data.train.next_batch({batch}) at {size}x{size}, 6 annotators: "
+        f"{batch_ms['from_config']:.1f} ms as from_config builds the providers (no resize_to), {batch_ms['resize_to']:.1f} ms with the registry's "
+        f"resize_to {cfg.resize_to} (scipy zoom at factor 1.0, the same arrays)")
+    xs = [torch.from_numpy(x).to(dev) for x, _ in host_batches]
+    ys = [torch.from_numpy(y).to(dev) for _, y in host_batches]
+    check(set(torch.cat(ys).unique().tolist()) == {0, 1, 2}, "the batches lack a class")
+    log_dir = os.path.join(log_root, "uzh")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    model = trainer.state.model
+    params = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    conv_chain.launches = 0
+    losses = [trainer.train_step(xs[0], ys[0])["loss"]]
+    torch.cuda.synchronize()
+    gates = zero_bias_gates(model, before, cfg, f"{UZH_EXPERIMENT} f32")
+    torch.cuda.set_sync_debug_mode("error")  # a host sync inside a step raises
+    for i in range(1, UZH_STEPS):
+        losses.append(trainer.train_step(xs[i], ys[i])["loss"])
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = conv_chain.launches
+    check(launches == 0, f"the UZH step launched the conv-chain kernel {launches} times")
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    same = [n for n, b in model.named_buffers() if torch.equal(b, stats0[n])]
+    check(not same, f"running statistics that did not change: {same}")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"non-finite loss: {losses.tolist()}")
+    log(f"[uzh] {UZH_STEPS} registered steps ({cfg.dtype}, {cfg.effective_reversible_mode}, bs{batch} {size}x{size}, "
+        f"3 classes, 6 annotators, 3-label augmentation): no host sync inside a step, {launches} conv-chain "
+        f"launches, {gates['zero_biases']} BN-followed biases an exact zero, {len(stats0)} running statistics all "
+        f"changed, peak {peak:.1f} MiB above what the card held before the trainer; losses "
+        f"{' '.join(f'{v:.1f}' for v in losses.tolist())}")
+
+    x, y = xs[0], ys[0]
+    steps = {}
+    for tf32 in (False, True):
+        on = "on" if tf32 else "off"
+        steps[f"plain_tf32_{on}"] = uzh_step(dev, card, log_dir, x, y, f"{UZH_EXPERIMENT} f32 plain TF32 {on}",
+                                             tf32=tf32)
+        steps[f"remat_tf32_{on}"] = uzh_step(dev, card, log_dir, x, y, f"{UZH_EXPERIMENT} f32 remat TF32 {on}",
+                                             tf32=tf32, reversible_mode="remat")
+        steps[f"reversible_tf32_{on}"] = uzh_step(dev, card, log_dir, x, y, f"{UZH_REV_EXPERIMENT} f32 TF32 {on}",
+                                                  UZH_REV_EXPERIMENT, tf32=tf32)
+    steps["bf16"] = uzh_step(dev, card, log_dir, x, y, f"{UZH_EXPERIMENT} bf16 plain", dtype="bfloat16")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    for on in ("off", "on"):
+        plain = steps[f"plain_tf32_{on}"]["peak_mib"]
+        log(f"[memory] {UZH_EXPERIMENT} f32 bs{batch} {size}x{size}, TF32 {on}: step peak above the card's other state "
+            f"plain {plain:.1f} / remat {steps[f'remat_tf32_{on}']['peak_mib']:.1f} / reversible "
+            f"{steps[f'reversible_tf32_{on}']['peak_mib']:.1f} MiB, saving against plain remat "
+            f"{1 - steps[f'remat_tf32_{on}']['peak_mib'] / plain:.1%}, reversible "
+            f"{1 - steps[f'reversible_tf32_{on}']['peak_mib'] / plain:.1%}; the card's "
+            f"{torch.cuda.get_device_properties(dev).total_memory / MIB:.0f} MiB | card: {card}")
+    del xs, ys
+    torch.cuda.empty_cache()
+
+    # (d) the evaluation at 512^2 on the registered trainer; (e) UZHMatData
+    evaluation = uzh_validation(trainer, data, dev, card)
+    trainer.close()
+    del trainer, model
+    torch.cuda.empty_cache()
+    uzh_mat(dev, os.path.join(log_root, "uzh_mat"))
+    took = time.perf_counter() - t0
+    log(f"[uzh] phase 11 took {took:.1f} s")
+    return {"parity": parity, "launches": launches, "registered_peak_mib": peak, "steps": steps,
+            "next_batch_ms": batch_ms, "evaluation": evaluation, "seconds": took}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     sys.path.insert(0, REPO)
     from unet_zoo_tpu_torch.ops.pallas import _build, conv_chain
     from unet_zoo_tpu_torch.ops.conv import chain_route
@@ -2455,7 +2754,12 @@ def main() -> int:
 
         # 10. PHiSeg3D and the BraTS path
         brats_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
+        # 11. the UZH prostate path
+        uzh = uzh_phase(conv_chain, dev, card, log_root)
+
+    log(f"[env] phases 1-11 took {time.perf_counter() - started:.1f} s")
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]
     log(json.dumps({"kernels": [{
@@ -2512,6 +2816,10 @@ def main() -> int:
         "prob_unet_block_max_abs_err": prob["blocks"]["max_abs_err"],
         "prob_unet_validation_eval_s_per_image": prob["harness"]["validation_eval_s_per_image"],
         "f32_blocks_bs12": prob["blocks"]["rows"],
+        "uzh_launches": uzh["launches"],
+        "uzh_512_step_ms": {k: v["ms"] for k, v in uzh["steps"].items()},
+        "uzh_512_step_peak_mib": {k: v["peak_mib"] for k, v in uzh["steps"].items()},
+        "uzh_512_validation": uzh["evaluation"],
     }, {
         "name": "fused_conv_chain_f32",
         "kernel": F32_ROUTE,

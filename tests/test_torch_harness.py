@@ -42,8 +42,8 @@ from unet_zoo_tpu.models.unet import UNet as JaxUNet
 from unet_zoo_tpu.training import Trainer as JaxTrainer
 from unet_zoo_tpu.utils.summary import MetricsWriter as JaxMetricsWriter
 from unet_zoo_tpu_torch.bridge import load_jax_params
-from unet_zoo_tpu_torch.data import (BatchProvider, BratsData, LIDCData, data_switch, normalise_images, resize_batch,
-                                     synthetic)
+from unet_zoo_tpu_torch.data import (BatchProvider, BratsData, LIDCData, UZHMatData, UZHProstateData, data_switch,
+                                     normalise_images, resize_batch, synthetic)
 from unet_zoo_tpu_torch.data.lidc import prepare_data
 from unet_zoo_tpu_torch.experiments import ExperimentConfig, SystemConfig, load_experiment
 from unet_zoo_tpu_torch.training import Trainer, image_metrics
@@ -251,9 +251,8 @@ def test_provider_helpers_match_jax():
 def test_loader_and_dataset_registry():
     assert data_switch("lidc") is LIDCData
     assert data_switch("brats") is BratsData
-    for name in ("uzh_prostate", "uzh_mat"):
-        with pytest.raises(NotImplementedError, match=name):
-            data_switch(name)
+    assert data_switch("uzh_prostate") is UZHProstateData
+    assert data_switch("uzh_mat") is UZHMatData
     with pytest.raises(ValueError, match="unknown dataset"):
         data_switch("acdc")
     with pytest.raises(NotImplementedError, match="native"):

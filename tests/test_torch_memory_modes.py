@@ -256,8 +256,11 @@ def test_reversible_experiments_build(name, cls):
 
 @pytest.mark.parametrize("name", ["phiseg_uzh_rev_7_5_256", "phiseg_uzh_rev_7_5_192", "phiseg_uzh_rev_7_5_224"])
 def test_unported_reversible_experiments_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_experiment(name)
+    """The UZH reversible experiments build RevPHiSeg, 3 classes, with ``ReversibleSequence``."""
+    cfg = get_experiment(name)
+    model = get_model(cfg.model, **cfg.model_kwargs(), device="cpu", generator=torch.Generator().manual_seed(0))
+    assert isinstance(model, PHiSeg) and cfg.effective_reversible_mode == "reversible" and cfg.n_classes == 3
+    assert any(isinstance(m, ReversibleSequence) for m in model.modules())
 
 
 @pytest.mark.parametrize("model", ["unet", "phiseg", "prob_unet"])

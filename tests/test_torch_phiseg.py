@@ -70,8 +70,8 @@ def _data(batch, size, seed=0):
 
 
 def _jax_model(cfg, dtype=None):
-    return JaxPHiSeg(num_classes=2, num_filters=cfg["num_filters"], latent_levels=cfg["latent_levels"],
-                     image_size=cfg["image_size"], dtype=dtype)
+    return JaxPHiSeg(num_classes=cfg.get("num_classes", 2), num_filters=cfg["num_filters"],
+                     latent_levels=cfg["latent_levels"], image_size=cfg["image_size"], dtype=dtype)
 
 
 def _run_jit(fn, *args):
@@ -82,9 +82,10 @@ def _run_jit(fn, *args):
 
 
 @functools.cache
-def _shapes(num_filters, latent_levels, image_size):
+def _shapes(num_filters, latent_levels, image_size, num_classes=2):
     x, y = _data(1, image_size)
-    init = _jax_model(dict(num_filters=num_filters, latent_levels=latent_levels, image_size=image_size)).init
+    init = _jax_model(dict(num_filters=num_filters, latent_levels=latent_levels, image_size=image_size,
+                           num_classes=num_classes)).init
     return jax.eval_shape(lambda r, x, y: init(r, x, y, train=True),
                           {"params": jax.random.PRNGKey(0), "z": jax.random.PRNGKey(0)}, jnp.asarray(x), jnp.asarray(y))
 
@@ -94,7 +95,8 @@ def _variables(cfg, seed):
     biases U(+-1/sqrt(fan_in)) (the torch_default init), BatchNorm scale
     U(0.8, 1.2) and bias U(-0.1, 0.1), running mean N(0, 0.2^2) and variance
     U(0.5, 2)."""
-    shapes = _shapes(tuple(cfg["num_filters"]), cfg["latent_levels"], tuple(cfg["image_size"]))
+    shapes = _shapes(tuple(cfg["num_filters"]), cfg["latent_levels"], tuple(cfg["image_size"]),
+                     cfg.get("num_classes", 2))
     rng = np.random.default_rng(seed)
 
     def fill(scope, stats):

@@ -358,10 +358,8 @@ def test_phiseg_experiments_match_jax(name):
 
 
 def test_registry_names_every_jax_experiment():
-    ported, unported = set(registry.EXPERIMENTS), set(registry.NOT_PORTED)
-    assert not ported & unported and ported | unported == set(jax_list_experiments())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_experiment("phiseg_uzh_rev_7_5_192")
+    assert sorted(registry.EXPERIMENTS) == sorted(jax_list_experiments())
+    assert get_experiment("phiseg_uzh_rev_7_5_192").data_loader == "uzh_prostate"
     with pytest.raises(ValueError, match="unknown experiment"):
         get_experiment("resnet")
 

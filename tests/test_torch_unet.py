@@ -165,6 +165,7 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.data, unet_zoo_tpu_torch.data.augment, "
             "unet_zoo_tpu_torch.data.batch_provider, unet_zoo_tpu_torch.data.lidc, "
             "unet_zoo_tpu_torch.data.registry, unet_zoo_tpu_torch.data.synthetic, unet_zoo_tpu_torch.data.brats, "
+            "unet_zoo_tpu_torch.data.uzh, "
             "unet_zoo_tpu_torch.metrics.brats, unet_zoo_tpu_torch.utils.nii, unet_zoo_tpu_torch.utils.postprocess, "
             "unet_zoo_tpu_torch.experiments, unet_zoo_tpu_torch.experiments.config, "
             "unet_zoo_tpu_torch.experiments.registry, unet_zoo_tpu_torch.training, "

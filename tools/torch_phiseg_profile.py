@@ -2,9 +2,13 @@
 """Where the PHiSeg train step's time goes, on one CUDA card.
 
     python3 tools/torch_phiseg_profile.py [--steps N]    # from the repository root
+    python3 tools/torch_phiseg_profile.py --experiment phiseg_uzh_7_5_512 --dtype float32 [--tf32] --steps 2
 
 Builds the ``phiseg_7_5_12`` trainer in bf16 (batch 12, 128x128, device
-augmentation) from seed 0, warms up, then prints: the step's time by CUDA
+augmentation) from seed 0, or another registered PHiSeg experiment in
+either dtype with cuDNN's TF32 off (the ``Trainer``'s default) or on (a UZH
+experiment on ``synthetic.uzh_arrays`` at its size, 3 classes), warms up,
+then prints: the step's time by CUDA
 events (min of 2 rounds of N steps) and images/s; the host's time to issue
 one step onto an idle device (min and median of N); and, from
 ``torch.profiler`` over 3 steps, the kernel time a step, the kernel launches
@@ -31,6 +35,9 @@ PROFILED_STEPS = 3
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--experiment", default="phiseg_7_5_12")
+    parser.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    parser.add_argument("--tf32", action="store_true", help="cuDNN convolutions and f32 matmuls in TF32")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -44,9 +51,18 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    cfg = dataclasses.replace(get_experiment("phiseg_7_5_12"), dtype="bfloat16")
-    xs, ys = train_batches(1, dev, cfg.batch_size)
-    trainer = Trainer(cfg, dev, seed=0, log_dir=tempfile.mkdtemp(prefix="phiseg_profile_"), tensorboard=False)
+    cfg = dataclasses.replace(get_experiment(args.experiment), dtype=args.dtype)
+    if cfg.data_loader == "uzh_prostate":
+        from unet_zoo_tpu_torch.data import UZHProstateData, synthetic
+
+        data = UZHProstateData(synthetic.uzh_arrays((cfg.batch_size, 0, 0), cfg.image_size[0], seed=0), seed=0)
+        xs, ys = ([torch.from_numpy(a).to(dev)] for a in data.train.next_batch(cfg.batch_size))
+    else:
+        xs, ys = train_batches(1, dev, cfg.batch_size)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=tempfile.mkdtemp(prefix="phiseg_profile_"), tensorboard=False,
+                      tf32=args.tf32)
+    print(f"[profile] {args.experiment} {args.dtype}, TF32 {'on' if args.tf32 else 'off'}, batch {cfg.batch_size}, "
+          f"{'x'.join(map(str, cfg.image_size))}", flush=True)
     for _ in range(3):
         trainer.train_step(xs[0], ys[0])
 

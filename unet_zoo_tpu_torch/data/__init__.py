@@ -1,6 +1,6 @@
 """Data pipeline of the PyTorch port: host-side batch providers over the
-LIDC and BraTS caches (``h5py`` imported only where HDF5 is read or
-written) and the on-device 2D and 3D augmentation."""
+LIDC, UZH prostate and BraTS caches (``h5py`` imported only where HDF5 is
+read or written) and the on-device 2D and 3D augmentation."""
 
 from unet_zoo_tpu_torch.data import synthetic
 from unet_zoo_tpu_torch.data.augment import (
@@ -19,6 +19,7 @@ from unet_zoo_tpu_torch.data.batch_provider import BatchProvider, normalise_imag
 from unet_zoo_tpu_torch.data.brats import BratsData
 from unet_zoo_tpu_torch.data.lidc import LIDCData
 from unet_zoo_tpu_torch.data.registry import DATASETS, data_switch
+from unet_zoo_tpu_torch.data.uzh import UZHMatData, UZHProstateData
 
 __all__ = [
     "Augment3DOptions",
@@ -36,6 +37,8 @@ __all__ = [
     "normalise_images",
     "resize_batch",
     "LIDCData",
+    "UZHMatData",
+    "UZHProstateData",
     "DATASETS",
     "data_switch",
     "synthetic",

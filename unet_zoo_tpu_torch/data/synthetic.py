@@ -1,14 +1,16 @@
-"""Synthetic LIDC- and BraTS-schema data, a jax-free copy of those parts of
+"""Synthetic LIDC-, UZH- and BraTS-schema data, a jax-free copy of
 ``unet_zoo_tpu.data.synthetic`` (the same RNG streams, so the same arrays
 at the same seed).
 
 LIDC: images are smooth random blobs; graders are correlated noisy
 dilations of a ground-truth mask, some of them empty, like LIDC's
-4-annotator disagreement. BraTS: 4-channel noise volumes with a nested
-spherical tumour (labels 1, 2, 4 from the outside in) a case. ``h5py`` is
-imported only by the functions that write or open HDF5; ``lidc_splits``
-and ``brats_arrays`` build the caches' arrays in memory, which ``LIDCData``
-and ``BratsData`` read as they read an open HDF5 file.
+4-annotator disagreement. UZH: the same blobs with 6 graders, each case's
+masks carrying one label in [1, num_classes). BraTS: 4-channel noise
+volumes with a nested spherical tumour (labels 1, 2, 4 from the outside
+in) a case. ``h5py`` is imported only by the functions that write or open
+HDF5; ``lidc_splits``, ``uzh_arrays`` and ``brats_arrays`` build the
+caches' arrays in memory, which ``LIDCData``, ``UZHProstateData`` and
+``BratsData`` read as they read an open HDF5 file.
 """
 
 from __future__ import annotations
@@ -92,6 +94,37 @@ def synthetic_lidc(tmpdir: str, annotator_range=None, num_per_split=(24, 8, 8), 
     if not os.path.exists(path):
         make_lidc_cache(path, num_per_split=num_per_split, size=size, seed=seed)
     return LIDCData(h5py.File(path, "r"), annotator_range=annotator_range, seed=seed)
+
+
+def uzh_arrays(num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128, num_classes: int = 3,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    """The UZH cache's schema in memory: ``images_<split>`` (n, size, size)
+    float32, ``masks_<split>`` (n, size, size, 6) uint8 and
+    ``patient_id_<split>`` uint8, for train, validation and test."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for tt, n in zip(("train", "validation", "test"), num_per_split):
+        imgs, msks = [], []
+        for _ in range(n):
+            image, masks = _blob_case(rng, size, 6)
+            lbl = masks * rng.integers(1, num_classes, size=1).astype(np.uint8)
+            imgs.append(image)
+            msks.append(lbl.transpose(1, 2, 0))
+        out[f"images_{tt}"] = np.asarray(imgs, dtype=np.float32)
+        out[f"masks_{tt}"] = np.asarray(msks, dtype=np.uint8)
+        out[f"patient_id_{tt}"] = np.arange(n, dtype=np.uint8)
+    return out
+
+
+def make_uzh_cache(path: str, num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128,
+                   num_classes: int = 3, seed: int = 0) -> str:
+    """Write ``uzh_arrays`` as an HDF5 cache with the UZH schema."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for name, value in uzh_arrays(num_per_split, size, num_classes, seed).items():
+            f.create_dataset(name, data=value)
+    return path
 
 
 def brats_arrays(num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, int] = (32, 32, 32), seed: int = 0,

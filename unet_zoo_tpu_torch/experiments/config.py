@@ -2,8 +2,8 @@
 ``unet_zoo_tpu.experiments.config``.
 
 ``ExperimentConfig`` carries the fields that the U-Net, ProbUNet, PHiSeg and
-PHiSeg3D train steps, the evaluation and the train loop read, with the JAX
-package's names and defaults; the UZH fields come back with their port.
+PHiSeg3D train steps, the evaluation, the train loop and the LIDC, UZH and
+BraTS loaders read, with the JAX package's names and defaults.
 ``validate`` raises on what the JAX package rejects and on what the port
 does not run (host augmentation, a 3D U-Net or ProbUNet, whose BN-free conv
 chains have no 3D kernel). ``SystemConfig`` is the JAX package's whole, so that one
@@ -69,6 +69,7 @@ class ExperimentConfig:
     num_labels_per_subject: int = 4
     annotator_range: Optional[Tuple[int, ...]] = None
     resize_to: Optional[Tuple[int, ...]] = None
+    target_resolution: Optional[Tuple[float, ...]] = None  # UZH: the slices' pixel size after rescaling
     augmentation_options: Optional[AugmentOptions] = None
     augmentation_options_3d: Optional[Augment3DOptions] = None
     augment_on: str = "device"  # "host" (the JAX package's cv2 chain) is not ported

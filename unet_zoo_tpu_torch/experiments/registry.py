@@ -1,10 +1,9 @@
 """Built-in experiments, a jax-free copy of ``unet_zoo_tpu.experiments.registry``.
 
-The ``unet`` and ``reversible_unet`` entries, ``prob_unet`` and
-``prob_unet_reversible``, the 2D LIDC PHiSeg entries, plain and reversible,
-and ``phiseg_brats`` (PHiSeg3D) are ported (each with the JAX entry's values
-of the fields the port carries); the JAX package's UZH prostate names raise
-``NotImplementedError``.
+Every JAX entry, each with the JAX entry's values of the fields the port
+carries: ``unet`` and ``reversible_unet``, ``prob_unet`` and
+``prob_unet_reversible``, the 2D LIDC and UZH prostate PHiSeg entries,
+plain and reversible, and ``phiseg_brats`` (PHiSeg3D).
 """
 
 from __future__ import annotations
@@ -94,6 +93,29 @@ def _phiseg_big_reversible() -> ExperimentConfig:
     return dataclasses.replace(_phiseg_big(), experiment_name="PHISegBigRev", use_reversible=True)
 
 
+def _phiseg_uzh(resolution: int, reversible: bool) -> ExperimentConfig:
+    """reference models/experiments/phiseg_uzh_[rev_]7_5_<res>.py"""
+    return ExperimentConfig(
+        experiment_name=f"PHISegUZH{'Rev' if reversible else ''}_7_5_{resolution}",
+        log_dir_name="uzh",
+        model="phiseg",
+        data_loader="uzh_prostate",
+        filter_channels=(32, 64, 128, 192, 192, 192, 192),
+        latent_levels=5,
+        n_classes=3,
+        num_labels_per_subject=6,
+        use_reversible=reversible,
+        batch_size=12,
+        image_size=(resolution, resolution),
+        resize_to=(resolution, resolution),
+        target_resolution=(0.625, 0.625),
+        augmentation_options=AugmentOptions(do_rotations=True, do_scaleaug=True, do_fliplr=True, do_flipud=True,
+                                            nlabels=3),
+        validation_samples=16,
+        num_validation_images="all",
+    )
+
+
 def _phiseg_brats() -> ExperimentConfig:
     """reference models/experiments/phiseg_brats.py (volumetric 128^3)"""
     return ExperimentConfig(
@@ -126,16 +148,13 @@ EXPERIMENTS: Dict[str, Callable[[], ExperimentConfig]] = {
     "prob_unet_reversible": _prob_unet_reversible,
     **{f"phiseg_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b))(bs) for bs in (12, 24, 36, 48, 56)},
     **{f"phiseg_rev_7_5_{bs}": (lambda b: lambda: _phiseg_lidc(b, True))(bs) for bs in (12, 24, 36, 48, 56, 60, 64)},
+    **{f"phiseg_uzh_7_5_{res}": (lambda r: lambda: _phiseg_uzh(r, False))(res) for res in (192, 256, 384, 512)},
+    **{f"phiseg_uzh_rev_7_5_{res}": (lambda r: lambda: _phiseg_uzh(r, True))(res)
+       for res in (192, 224, 256, 384, 512)},
     "phiseg_big": _phiseg_big,
     "phiseg_big_reversible": _phiseg_big_reversible,
     "phiseg_brats": _phiseg_brats,
 }
-
-# in the JAX package's registry, not ported yet
-NOT_PORTED = (
-    *(f"phiseg_uzh_7_5_{res}" for res in (192, 256, 384, 512)),
-    *(f"phiseg_uzh_rev_7_5_{res}" for res in (192, 224, 256, 384, 512)),
-)
 
 
 def get_experiment(name: str) -> ExperimentConfig:
@@ -143,6 +162,4 @@ def get_experiment(name: str) -> ExperimentConfig:
         cfg = EXPERIMENTS[name]()
         cfg.validate()
         return cfg
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"experiment '{name}' is not ported to PyTorch yet; ported: {sorted(EXPERIMENTS)}")
     raise ValueError(f"unknown experiment '{name}'; available: {sorted(EXPERIMENTS)}")

@@ -20,10 +20,12 @@ checkpoints under the reference's names (``validation_ckpt``,
 WT/TC/ET labels) validates and tests a volume at a time (``eval_volume``:
 per-region Dice, sensitivity and specificity on the device, HD95 on the
 host; ``validate_brats``, ``test_brats``) and exports its predictions as
-NIfTI label maps (``export_predictions``). The JAX package enqueues every
-volume before it fetches any; here at most ``EVAL_WINDOW`` volumes are in
+NIfTI label maps (``export_predictions``). The JAX package uploads and
+enqueues every image or volume before it fetches any; here a 2D split goes
+up ``EVAL_IMAGE_WINDOW`` images at a time (labels as uint8, widened on the
+card), and at most ``EVAL_WINDOW`` windows of images, or volumes, are in
 flight, each fetched into page-locked memory behind an event, so the host
-reads one volume while the card computes the next.
+reads one while the card computes the next.
 
 Evaluation draws its z noise from a device generator seeded from (seed,
 step, salt, image index) (``eval_generator``), never from the train
@@ -67,8 +69,14 @@ log = logging.getLogger(__name__)
 # the scalar results of one evaluated image, in the order of a row of
 # ``Trainer.evaluate_images``; the per-class Dice follows them
 EVAL_SCALARS = ("ged", "ncc", "loss", "kl", "recon")
-# BraTS volumes evaluated ahead of the one the host reads
+# windows of 2D images, or BraTS volumes, evaluated ahead of the one the host reads
 EVAL_WINDOW = 2
+# 2D images uploaded and evaluated at a time by ``validate`` and ``test``: at
+# 512x512 with 6 annotators an image's labels take 1.5 MiB as uint8 and 12
+# MiB widened to int64, and a UZH validation takes "all" images
+EVAL_IMAGE_WINDOW = 8
+# validation images drawn as panels (input / the chosen annotator / mean prediction / one sample)
+PANELS = 4
 # samples a BraTS volume decodes at a time: at 128^3 a 16-sample fold decoded
 # whole peaks near 47 GiB of the card's 80, 4 at a time near 14 GiB, in the
 # same time (``chip_smoke.py`` phase 10 (c), PERF.md)
@@ -334,29 +342,66 @@ class Trainer:
         out.update(loss=loss, kl=aux["kl"], recon=aux["recon"])
         return out
 
-    def _upload(self, split, n: int) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor]:
-        """The first ``n`` images and labels of ``split`` (``images`` (N,
-        *S), ``labels`` (N, *S, A)) on the device, once: (host images,
-        images (n, *S, 1) float32, labels (n, A, *S) int64)."""
-        images = np.asarray(split.images[:n], dtype=np.float32)
-        labels = np.moveaxis(np.asarray(split.labels[:n]), -1, 1).astype(np.int64)
-        return images, torch.from_numpy(images[..., None]).to(self.device), torch.from_numpy(labels).to(self.device)
+    def _upload(self, split, start: int, stop: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Images ``start:stop`` of ``split`` (``images`` (N, *S), ``labels``
+        (N, *S, A)) on the device: images (n, *S, 1) float32 and labels (n,
+        A, *S), copied as uint8 and widened to int64 there."""
+        images = np.asarray(split.images[start:stop], dtype=np.float32)[..., None]
+        labels = np.ascontiguousarray(np.moveaxis(np.asarray(split.labels[start:stop]), -1, 1), dtype=np.uint8)
+        return self._to_device(images), self._to_device(labels).long()
 
     def evaluate_images(self, images: torch.Tensor, labels: torch.Tensor, chosen: List[int], n_samples: int,
-                        n_loss: int, salt: int, first_index: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                        n_loss: int, salt: int, first_index: int = 0, n_maps: int = 0
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``eval_image`` of every uploaded image against annotator
         ``chosen[i]``, all issued before anything is fetched: no host sync.
         Returns device tensors: (n, 5 + C) float32 rows (``EVAL_SCALARS``,
-        then the per-class Dice) and the (n, 2, *S) maps mean_pred and
-        sample0."""
+        then the per-class Dice) and the (n_maps, 2, *S) maps mean_pred and
+        sample0 of the first ``n_maps`` images (None for none)."""
         rows, maps = [], []
         with torch.inference_mode():
             for ii, a in enumerate(chosen):
                 out = self.eval_image(images[ii:ii + 1], labels[ii], labels[ii, a:a + 1], n_samples, n_loss, salt,
                                       first_index + ii)
                 rows.append(torch.cat([torch.stack([out[k].float() for k in EVAL_SCALARS]), out["dice"]]))
-                maps.append(torch.stack([out["mean_pred"], out["sample0"]]))
-            return torch.stack(rows), torch.stack(maps)
+                if ii < n_maps:
+                    maps.append(torch.stack([out["mean_pred"], out["sample0"]]))
+            return torch.stack(rows), torch.stack(maps) if maps else None
+
+    def stream_images(self, split, chosen: List[int], n_samples: int, n_loss: int, salt: int, first_index: int = 0,
+                      n_maps: int = 0) -> Iterator[Tuple[Dict[str, torch.Tensor], int]]:
+        """``evaluate_images`` of images 0..len(chosen)-1 of ``split``,
+        uploaded ``EVAL_IMAGE_WINDOW`` at a time, image i with noise index
+        ``first_index + i`` and the maps of the first ``n_maps``, through
+        ``_fetched``: yields (a window's host results ``rows`` and, where it
+        has any, ``maps``; its first image) in order."""
+        def issued():
+            for start in range(0, len(chosen), EVAL_IMAGE_WINDOW):
+                stop = min(start + EVAL_IMAGE_WINDOW, len(chosen))
+                images, labels = self._upload(split, start, stop)
+                rows, maps = self.evaluate_images(images, labels, chosen[start:stop], n_samples, n_loss, salt,
+                                                  first_index + start, n_maps=n_maps - start)
+                yield ({"rows": rows} if maps is None else {"rows": rows, "maps": maps}), start
+
+        return self._fetched(issued())
+
+    def _fetched(self, issued: Iterator[Tuple[Dict[str, torch.Tensor], object]]) -> Iterator[tuple]:
+        """(host results, tag) for each (device results, tag) that ``issued``
+        yields, in order: each copied into page-locked memory behind an event
+        as soon as it is issued, at most ``EVAL_WINDOW`` in flight, and
+        yielded once its copies are done, while the card works on the next."""
+        def landed(host, event, tag):
+            if event is not None:
+                event.synchronize()
+            return host, tag
+
+        pending = collections.deque()
+        for out, tag in issued:
+            pending.append((*self._to_host(out), tag))
+            if len(pending) >= EVAL_WINDOW:
+                yield landed(*pending.popleft())
+        while pending:
+            yield landed(*pending.popleft())
 
     def validate(self, data) -> Dict[str, float]:
         """Saves ``validation_ckpt``, evaluates ``num_validation_images``
@@ -374,17 +419,20 @@ class Trainer:
         n_val = n_total if cfg.num_validation_images == "all" else min(cfg.num_validation_images, n_total)
         val_rng, annotators = self._eval_rng(), self._annotators()
         chosen = [int(val_rng.choice(annotators)) for _ in range(n_val)]
-        host_images, images, labels = self._upload(data.validation, n_val)
-        rows, maps = self.evaluate_images(images, labels, chosen, cfg.validation_samples, cfg.validation_samples,
-                                          salt=0)
-        rows = rows.cpu().numpy()
+        n_panels = min(PANELS, n_val) if self.validation_writer.tensorboard else 0
+        rows, panels = [], []
+        for host, _ in self.stream_images(data.validation, chosen, cfg.validation_samples, cfg.validation_samples,
+                                          salt=0, n_maps=n_panels):
+            rows.append(host["rows"].numpy())
+            if "maps" in host:
+                panels.append(host["maps"].numpy())
+        rows = np.concatenate(rows)
 
-        if self.validation_writer.tensorboard:
-            # panels: input / the chosen annotator / mean prediction / one sample
+        if n_panels:
             nlab = max(cfg.n_classes - 1, 1)
-            panels = maps[:4].cpu().numpy()
-            for ii in range(len(panels)):
-                x = host_images[ii]
+            panels = np.concatenate(panels)
+            for ii in range(n_panels):
+                x = np.asarray(data.validation.images[ii], dtype=np.float32)
                 lo, hi = float(x.min()), float(x.max())
                 panel = [(x - lo) / max(hi - lo, 1e-8), np.asarray(data.validation.labels[ii])[..., chosen[ii]] / nlab,
                          panels[ii, 0] / nlab, panels[ii, 1] / nlab]
@@ -433,13 +481,14 @@ class Trainer:
         ncc_mat = np.zeros((num_repeats, n_images))
         dice_mat = np.zeros((num_repeats, n_images, cfg.n_classes))
         t0 = time.time()
-        _, images, labels = self._upload(data.test, n_images)
         for rep in range(num_repeats):
             chosen = [int(test_rng.choice(annotators)) for _ in range(n_images)]
-            rows, _ = self.evaluate_images(images, labels, chosen, num_samples, 1, salt=1,
-                                           first_index=rep * n_images)
-            rows = rows.cpu().numpy()
-            ged_mat[rep], ncc_mat[rep], dice_mat[rep] = rows[:, 0], rows[:, 1], rows[:, len(EVAL_SCALARS):]
+            for host, first in self.stream_images(data.test, chosen, num_samples, 1, salt=1,
+                                                  first_index=rep * n_images):
+                rows = host["rows"].numpy()
+                sl = slice(first, first + len(rows))
+                ged_mat[rep, sl], ncc_mat[rep, sl] = rows[:, 0], rows[:, 1]
+                dice_mat[rep, sl] = rows[:, len(EVAL_SCALARS):]
         results = {
             "ged": (float(ged_mat.mean()), float(ged_mat.std())),
             "ncc": (float(ncc_mat.mean()), float(ncc_mat.std())),
@@ -519,20 +568,16 @@ class Trainer:
     def stream_volumes(self, data, split: str, n: int, n_samples: int, salt: int,
                        first_index: int = 0) -> Iterator[tuple]:
         """``eval_volume`` of volumes 0..n-1 of ``split``, each with noise
-        index ``first_index + i``, at most ``EVAL_WINDOW`` in flight: yields
-        (i, host results, image, labels, pid) in order, each volume's results
-        read once its copies are done, while the card works on the next."""
-        pending = collections.deque()
-        for ii in range(n):
-            img, lbl, pid = data.get(ii, split)
-            out = self.eval_volume(self._to_device(img[None]), self._to_device(lbl[None]), n_samples, salt,
-                                   first_index + ii)
-            pending.append((ii, *self._to_host(out), img, lbl, pid))
-            while len(pending) >= EVAL_WINDOW or (ii == n - 1 and pending):
-                jj, host, event, img_j, lbl_j, pid_j = pending.popleft()
-                if event is not None:
-                    event.synchronize()
-                yield jj, host, img_j, lbl_j, pid_j
+        index ``first_index + i``, through ``_fetched``: yields (i, host
+        results, image, labels, pid) in order."""
+        def issued():
+            for ii in range(n):
+                img, lbl, pid = data.get(ii, split)
+                yield self.eval_volume(self._to_device(img[None]), self._to_device(lbl[None]), n_samples, salt,
+                                       first_index + ii), (ii, img, lbl, pid)
+
+        for host, (ii, img, lbl, pid) in self._fetched(issued()):
+            yield ii, host, img, lbl, pid
 
     @staticmethod
     def _hd95_row(host: Dict[str, torch.Tensor], lbl: np.ndarray) -> List[float]:
