@@ -185,7 +185,27 @@ Phases, each printing its own lines:
    without its checkpoint writes, peak; finite GED, NCC in [-1, 1], Dice in
    [0, 1]) and ``test`` (1 repeat, ``dice`` (1, N, 3)); (e) ``UZHMatData``
    over a ``scipy.io.savemat`` file of 160 slices at 192x192 (the 10/100/50
-   split, the batches, one train step at batch 2).
+   split, the batches, one train step at batch 2);
+12. data parallelism (``unet_zoo_tpu_torch.parallel``, ``Trainer(mesh=)``):
+   (a) a one-process NCCL group through ``init_distributed``/``make_mesh``:
+   the bf16 ``unet`` step at bs64 and ``phiseg_7_5_12`` at bs12 with device
+   augmentation, DP_STEPS steps from seed 0, each bit-identical to the plain
+   step, in which the model draws its own z noise (``own_draws_step``; cuDNN
+   deterministic, the resize as matrix products on both sides), 21
+   conv-chain launches a U-Net step and none in PHiSeg, no host sync inside
+   a step after the first, ms a step beside the plain step's;
+   (b) DP_RANKS processes on the one card over gloo (NCCL takes one process
+   a card; ``chip_smoke.py --dp-worker``), started together with a time
+   limit: ``phiseg_7_5_12`` at full width as registered (f32, TF32 off),
+   global bs12, and the f32 ``unet`` at global bs64, DP_RANK_STEPS steps
+   with augmentation, each against one process's step from the same state
+   and draws (loss, the whole gradient, running statistics at phase 6's
+   train-mode gates; the U-Net's 21 launches a step on each process and its
+   parameters), the processes bit-identical after each step, each
+   process's ms a step for information; (c) ``Trainer.train`` (20 bf16
+   ``unet`` steps, a validation every 10) on the two processes: process 0
+   alone validates and writes the checkpoints and metrics (process 1 no
+   file), the final parameters against one process's run.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -198,6 +218,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -449,6 +470,44 @@ UZH_STEPS = 2  # the counted run of the registered step
 UZH_SPLITS = (12, 9, 2)  # synthetic train / validation / test slices; validation > EVAL_IMAGE_WINDOW
 UZH_SAMPLES = 16  # the registered validation_samples
 UZH_MAT_SLICES, UZH_MAT_SIZE = 160, 192  # (e): 10 train, 100 validation, 50 test
+
+# phase 12: data parallelism
+DP_STEPS = 3  # (a): steps of each path from one seed, mesh and plain
+DP_TIME_STEPS = 5  # (a): steps a timed round
+DP_RANKS = 2  # (b), (c): processes sharing the one card over gloo
+DP_RANK_STEPS = 2  # (b): steps of each path, each from the two processes' state before it
+DP_PHISEG_BATCH = 12  # (b): the registered global batch, 6 a process
+DP_TIMEOUT = 600  # seconds for the two processes' whole run
+# (b) PHiSeg is held at phase 6's train-mode gates: its two processes take
+# BatchNorm's statistics by the group's formula, max(E[x^2] - E[x]^2, 0) as
+# the JAX package, where one process takes the library's Welford pass, and
+# train-mode BatchNorm at the published depth amplifies that rounding (the
+# gradient 3.0e-3 relative L2 at step 1, as JAX against the port on the CPU
+# above). ``tools/torch_dp_faults.py`` read the first step with a fault
+# planted on an NVIDIA H100 80GB HBM3 at 700 W: BatchNorm unsynced 1.29,
+# gradients unreduced 1.54 (statistics 0.31 of their max unsynced), the f32
+# U-Net's gradients unreduced 0.165 against 1.2e-6 without a fault; every
+# gate below lies between the two readings
+# (b) the float32 U-Net step at global bs64 on two processes against one,
+# each step from the same state: the gradient (relative L2) within
+# DP_F32_GRAD_L2 (the same per-image terms, cuDNN's weight gradients summed
+# over 32 images a process, then over the two), every parameter within
+# DP_PARAM_ATOL_LR lr but an entry whose gradient is within ROUNDING_OF_MAX of
+# its tensor's max|g|, whose first Adam update lr * sign(g) may take the other
+# sign, ROUNDING_FLIP_LR lr away, in at most FLIP_SHARE of all entries
+DP_F32_GRAD_L2 = 1e-4
+DP_PARAM_ATOL_LR, ROUNDING_OF_MAX, ROUNDING_FLIP_LR, FLIP_SHARE = 2e-2, 1e-3, 2.01, 1e-3
+# (c) Trainer.train on two processes against one, bf16, free trajectories
+# from one seed: the final parameters' distance from the one-process run's,
+# relative to how far that run moved them (||p2 - p1|| / ||p1 - p0||). The
+# bf16 weight gradients of 32 images a process round otherwise than those
+# of 64, Adam's first update turns the entries near 0 into +-lr, and 20
+# steps carry that on (0.048-0.084 measured, the worst entry 20.4 lr, on an
+# NVIDIA H100 80GB HBM3 at 700 W); with a fault planted
+# (``tools/torch_dp_faults.py``, same card) the processes end 0.53 of it
+# away where both trained on the first half of every batch, 0.52 where each
+# stepped on its own gradient
+DP_TRAIN_REL_MOVE = 0.25
 
 
 def log(msg: str) -> None:
@@ -1536,7 +1595,7 @@ def rev_module_parity(dev, card: str) -> dict:
     from unet_zoo_tpu_torch.ops import reversible as rev
 
     def function(x, ps):
-        return rev.ReversibleChain.apply(x, *ps)[0]
+        return rev.ReversibleChain.apply(x, None, *ps)[0]
 
     def autograd(x, ps):
         return rev.coupling_chain(x, rev._blocks(ps))[0]
@@ -2603,6 +2662,334 @@ def uzh_phase(conv_chain, dev, card: str, log_root: str) -> dict:
             "next_batch_ms": batch_ms, "evaluation": evaluation, "seconds": took}
 
 
+def dp_deterministic():
+    """cuDNN deterministic and ``deterministic_resize`` (whose backward has no
+    atomics): two runs of a step then agree bit for bit."""
+    stack = contextlib.ExitStack()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    stack.callback(setattr, torch.backends.cudnn, "deterministic", deterministic)
+    stack.enter_context(deterministic_resize())
+    return stack
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def own_draws_step(tr, x: torch.Tensor, y: torch.Tensor) -> dict:
+    """The plain step of (a): one step of ``tr`` on the whole batch in which
+    the model draws its own z noise from the state's generator inside the
+    forward, not the Trainer's ``train_noise`` before it (what a
+    one-process step computed before data parallelism). Returns the aux
+    dict."""
+    from unet_zoo_tpu_torch.training.trainer import LATENT_FAMILIES
+
+    x, y = tr.augment(x, y)
+    model = tr.state.model
+    model.train()
+    loss, aux = model.loss(model(x, y, generator=tr.state.generator) if tr.cfg.model in LATENT_FAMILIES else
+                           model(x), y)
+    tr.backward(loss)
+    tr.update(loss)
+    return {k: v.detach() for k, v in aux.items()}
+
+
+def dp_world1(conv_chain, dev, card: str, log_dir: str) -> dict:
+    """(a): a one-process NCCL group through ``parallel.init_distributed`` and
+    ``make_mesh``: the bf16 ``unet`` step at bs64 and ``phiseg_7_5_12`` at
+    bs12 with device augmentation, DP_STEPS steps from seed 0 by the mesh's
+    Trainer and by the plain step (``own_draws_step``) of a Trainer without
+    a mesh, each bit-identical (losses, parameters, running statistics,
+    Adam's moments, scheduler, generator; cuDNN deterministic and the resize
+    as matrix products on both sides); the launches of each mesh step (21 a
+    U-Net step, none in PHiSeg), no host sync inside a step after the first,
+    and ms a step on both, in turns."""
+    import torch.distributed as dist
+
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.parallel import init_distributed, make_mesh
+    from unet_zoo_tpu_torch.training import Trainer
+
+    check(init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda"), "no process group")
+    result = {}
+    try:
+        check(dist.get_backend() == "nccl", f"a one-card group runs {dist.get_backend()}")
+        mesh = make_mesh()
+        check(mesh.device == dev and mesh.world == 1, f"mesh {mesh}")
+        for name, batch, per_step in (("unet", TRAIN_BATCH, len(BLOCKS) * STAGES_PER_BLOCK),
+                                      (PHISEG_EXPERIMENT, DP_PHISEG_BATCH, 0)):
+            cfg = dataclasses.replace(get_experiment(name), dtype="bfloat16", batch_size=batch)
+            xs, ys = train_batches(DP_STEPS, dev, batch)
+            trainers, steps, losses, launches = {}, {}, {}, []
+            with dp_deterministic():
+                for label in ("plain", "mesh"):
+                    tr = Trainer(cfg, seed=0, log_dir=log_dir, **({"mesh": mesh} if label == "mesh" else
+                                                                   {"device": dev}))
+                    trainers[label], losses[label] = tr, []
+                    step = tr.train_step if label == "mesh" else functools.partial(own_draws_step, tr)
+                    steps[label] = step
+                    for i in range(DP_STEPS):
+                        torch.cuda.synchronize()
+                        conv_chain.launches = 0
+                        torch.cuda.set_sync_debug_mode("error" if i else 0)
+                        try:
+                            losses[label].append(step(xs[i], ys[i])["loss"])
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                        torch.cuda.synchronize()
+                        if label == "mesh":
+                            launches.append(conv_chain.launches)
+            check(launches == [per_step] * DP_STEPS, f"{name} mesh steps launched {launches}, expected {per_step} each")
+            check(torch.equal(torch.stack(losses["plain"]), torch.stack(losses["mesh"])),
+                  f"{name}: mesh losses {losses['mesh']} vs plain {losses['plain']}")
+            same_state(trainers["plain"].state.state_dict(), trainers["mesh"].state.state_dict(), f"{name} state")
+            ms = {"plain": math.inf, "mesh": math.inf}
+            for label in ("plain", "mesh", "mesh", "plain"):
+                step = steps[label]
+                ms[label] = min(ms[label], cuda_ms(lambda: step(xs[0], ys[0]), DP_TIME_STEPS))
+            log(f"[dp] (a) {name} bf16 bs{batch}, one-process NCCL mesh vs the plain step (the model's own z draws), "
+                f"{DP_STEPS} steps from seed 0 with device augmentation: losses, parameters, running statistics, "
+                f"Adam's moments, scheduler and generator bit-identical; {launches} conv-chain launches a mesh step; no host sync inside steps "
+                f"2-{DP_STEPS}; ms a step mesh {ms['mesh']:.3f}, plain {ms['plain']:.3f} (min of 2 rounds of "
+                f"{DP_TIME_STEPS}, in turns) | card: {card}")
+            result[name] = {"launches": launches, "ms": ms["mesh"], "plain_ms": ms["plain"]}
+            del trainers, steps
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return result
+
+
+def dp_worker(rank: int, port: int, workdir: str) -> None:
+    """One of DP_RANKS processes of (b) and (c), on the one card over gloo
+    (``chip_smoke.py --dp-worker RANK PORT WORKDIR``): writes
+    ``WORKDIR/<path>_<rank>.pt`` for the parent to check."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from unet_zoo_tpu_torch.data import LIDCData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.ops.pallas import conv_chain
+    from unet_zoo_tpu_torch.parallel import batch_spec, init_distributed, make_mesh
+    from unet_zoo_tpu_torch.training import Trainer, save_checkpoint
+    from unet_zoo_tpu_torch.training import trainer as trainer_module
+
+    check(init_distributed(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda", backend="gloo"), "no process group")
+    check(dist.get_backend() == "gloo", f"two processes on one card run {dist.get_backend()}")
+    mesh = make_mesh()
+    dev = mesh.device
+
+    # (b): PHiSeg as registered (f32, TF32 off) and the f32 U-Net, each step saved
+    for name, path_cfg in ((PHISEG_EXPERIMENT, {"batch_size": DP_PHISEG_BATCH}),
+                           ("unet", {"batch_size": TRAIN_BATCH, "dtype": "float32"})):
+        cfg = dataclasses.replace(get_experiment(name), **path_cfg)
+        xs, ys = train_batches(DP_RANK_STEPS, dev, cfg.batch_size)
+        rows = batch_spec(mesh, cfg.batch_size)
+        tr = Trainer(cfg, seed=0, log_dir=os.path.join(workdir, f"log{rank}"), mesh=mesh)
+        steps = []
+        for i in range(DP_RANK_STEPS):
+            torch.cuda.synchronize()
+            conv_chain.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            aux = tr.train_step(xs[i][rows], ys[i][rows])
+            end.record()
+            end.synchronize()
+            steps.append({"loss": aux["loss"].item(), "ms": start.elapsed_time(end), "launches": conv_chain.launches,
+                          "grads": {n: p.grad.cpu() for n, p in tr.state.model.named_parameters()},
+                          "state": copy.deepcopy(tr.state.state_dict())})
+            if rank == 0:
+                save_checkpoint(os.path.join(workdir, f"{name}.{i}.pt"), tr.state)
+        torch.save(steps, os.path.join(workdir, f"{name}_{rank}.pt"))
+        del tr
+        torch.cuda.empty_cache()
+
+    # (c): Trainer.train with validations, every checkpoint write recorded
+    cfg = dp_train_config()
+    data = LIDCData(synthetic.lidc_splits(HARNESS_SPLITS, IMAGE, seed=0), seed=0)
+    writes, save = [], trainer_module.save_checkpoint
+    with mock.patch.object(trainer_module, "save_checkpoint", lambda path, st: (writes.append(path), save(path, st))):
+        tr = Trainer(cfg, seed=0, log_dir=os.path.join(workdir, f"train{rank}"), mesh=mesh)
+        t0 = time.perf_counter()
+        tr.train(data)
+        train_s = time.perf_counter() - t0
+        tr.close()
+    torch.save({"state": copy.deepcopy(tr.state.state_dict()), "writes": [os.path.basename(w) for w in writes],
+                "train_s": train_s}, os.path.join(workdir, f"train_{rank}.pt"))
+    dist.destroy_process_group()
+    log(f"DP_DONE {rank}")
+
+
+def dp_train_config():
+    from unet_zoo_tpu_torch.experiments import get_experiment
+
+    return dataclasses.replace(get_experiment("unet"), dtype="bfloat16", iterations=HARNESS_ITERATIONS,
+                               validation_frequency=HARNESS_VALIDATION_FREQUENCY,
+                               logging_frequency=HARNESS_VALIDATION_FREQUENCY,
+                               num_validation_images=HARNESS_SPLITS[1], validation_samples=HARNESS_VALIDATION_SAMPLES)
+
+
+def params_within(got: dict, want: dict, grads: dict, lr: float, label: str) -> int:
+    """Every parameter of ``got`` within DP_PARAM_ATOL_LR lr of ``want`` but
+    entries whose gradient (``grads``, the reference's) is rounding, flipped
+    by Adam's first update, at most ROUNDING_FLIP_LR lr away; returns how many."""
+    flipped = 0
+    for n, g in grads.items():
+        diff = (got[n].float() - want[n].float()).abs().cpu()
+        g = g.abs().cpu()
+        off = diff > DP_PARAM_ATOL_LR * lr
+        wrong = off & (g > ROUNDING_OF_MAX * g.max())
+        if bool(wrong.any()):
+            check(False, f"{label} {n}: {diff[wrong].max().item() / lr:.3f} lr off where the gradient is not rounding")
+        check(diff.max().item() <= ROUNDING_FLIP_LR * lr, f"{label} {n}: {diff.max().item() / lr:.3f} lr off")
+        flipped += int(off.sum())
+    return flipped
+
+
+def dp_ranks(conv_chain, dev, card: str, log_root: str) -> dict:
+    """(b) and (c): DP_RANKS processes on the one card over gloo (NCCL takes
+    one process a card), started together with a time limit; the parent
+    then holds what they wrote against the one-process runs, each (b) step
+    from the two processes' state before it (their checkpoint)."""
+    from unet_zoo_tpu_torch.data import LIDCData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer, restore_checkpoint
+
+    workdir = os.path.join(log_root, "dp")
+    os.makedirs(workdir)
+    port = free_port()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", str(r), str(port), workdir],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    spawn_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        tail = "\n".join(out.splitlines()[-40:])
+        check(p.returncode == 0 and f"DP_DONE {r}" in out, f"dp process {r} exited {p.returncode}:\n{tail}")
+    log(f"[dp] {DP_RANKS} processes on one card over gloo ran (b) and (c) in {spawn_s:.1f} s | card: {card}")
+    result = {"spawn_s": spawn_s}
+
+    # (b): the processes agree bit for bit; each step against one process from the same state
+    for name, path_cfg in ((PHISEG_EXPERIMENT, {"batch_size": DP_PHISEG_BATCH}),
+                           ("unet", {"batch_size": TRAIN_BATCH, "dtype": "float32"})):
+        ranks = [torch.load(os.path.join(workdir, f"{name}_{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+        cfg = dataclasses.replace(get_experiment(name), **path_cfg)
+        xs, ys = train_batches(DP_RANK_STEPS, dev, cfg.batch_size)
+        one = Trainer(cfg, dev, seed=0, log_dir=os.path.join(workdir, "one"))
+        lr = cfg.learning_rate
+        rows = []
+        for i in range(DP_RANK_STEPS):
+            for r in range(1, DP_RANKS):
+                same_state(ranks[0][i]["state"], ranks[r][i]["state"], f"{name} step {i + 1} process {r}")
+            if i:
+                restore_checkpoint(os.path.join(workdir, f"{name}.{i - 1}.pt"), one.state)
+            aux = one.train_step(xs[i], ys[i])
+            got = ranks[0][i]
+            want_state = one.state.state_dict()["model"]
+            grads = {n: p.grad for n, p in one.state.model.named_parameters()}
+            loss_rel = abs(got["loss"] - aux["loss"].item()) / abs(aux["loss"].item())
+            g = torch.cat([got["grads"][n].reshape(-1).double() for n in grads]).to(dev)
+            w = torch.cat([grads[n].reshape(-1).double() for n in grads])
+            grad_l2 = ((g - w).norm() / w.norm()).item()
+            mine = one.state.state_dict()
+            for k in ("generator", "step"):  # the global batch's draws; sched.best is the loss, within its gate
+                same_state(mine[k], got["state"][k], f"{name} step {i + 1} {k}")
+            for k in ("lr", "num_bad"):
+                same_state(mine["sched"][k], got["state"]["sched"][k], f"{name} step {i + 1} sched.{k}")
+            if name == "unet":
+                check(all(ranks[r][i]["launches"] == len(BLOCKS) * STAGES_PER_BLOCK for r in range(DP_RANKS)),
+                      f"f32 unet step {i + 1}: launches {[ranks[r][i]['launches'] for r in range(DP_RANKS)]}")
+                check(loss_rel <= PHISEG_LOSS_RTOL and grad_l2 <= DP_F32_GRAD_L2,
+                      f"f32 unet step {i + 1}: loss rel {loss_rel:.3e}, gradient rel L2 {grad_l2:.3e}")
+                flipped = params_within(got["state"]["model"], want_state, grads, lr, f"f32 unet step {i + 1}")
+                check(flipped <= FLIP_SHARE * w.numel(), f"f32 unet step {i + 1}: {flipped} entries flipped")
+                extra = f"{flipped} of {w.numel()} parameter entries flipped by Adam's first update (tol " \
+                        f"{FLIP_SHARE:.0e} of them), the rest within {DP_PARAM_ATOL_LR} lr"
+            else:
+                stats = max(((got["state"]["model"][k].float() - v.float()).abs().max() / v.abs().max()).item()
+                            for k, v in want_state.items() if "running" in k)
+                check(loss_rel <= PHISEG_LOSS_RTOL and grad_l2 <= PHISEG_TRAIN_GRAD_L2 and stats <= PHISEG_STATS_RTOL,
+                      f"{name} step {i + 1}: loss rel {loss_rel:.3e}, gradient rel L2 {grad_l2:.3e}, running "
+                      f"statistics {stats:.3e} of their max")
+                extra = f"running statistics {stats:.3e} of their max (tol {PHISEG_STATS_RTOL})"
+            ms = [ranks[r][i]["ms"] for r in range(DP_RANKS)]
+            log(f"[dp] (b) {name} f32 (TF32 off) global bs{cfg.batch_size}, {DP_RANKS} processes vs one from the "
+                f"same state, step {i + 1}: processes bit-identical; loss rel {loss_rel:.3e} (tol {PHISEG_LOSS_RTOL}), "
+                f"gradient rel L2 {grad_l2:.3e} (tol {DP_F32_GRAD_L2 if name == 'unet' else PHISEG_TRAIN_GRAD_L2}); "
+                f"{extra}; launches a process {[ranks[r][i]['launches'] for r in range(DP_RANKS)]}; ms a step a "
+                f"process {', '.join(f'{m:.3f}' for m in ms)} (gloo through the host; for information) | card: {card}")
+            rows.append({"loss_rel": loss_rel, "grad_rel_l2": grad_l2, "ms": ms,
+                         "launches": [ranks[r][i]["launches"] for r in range(DP_RANKS)]})
+        result[name] = rows
+        del one
+        torch.cuda.empty_cache()
+
+    # (c): process 0 alone validated and wrote; the final state against one process's run
+    ranks = [torch.load(os.path.join(workdir, f"train_{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+    same_state(ranks[0]["state"], ranks[1]["state"], "train() process 1")
+    validations = HARNESS_ITERATIONS // HARNESS_VALIDATION_FREQUENCY
+    writes = ranks[0]["writes"]
+    check(writes.count("validation_ckpt") == validations and all(w.startswith(("validation_ckpt", "best_"))
+                                                                 for w in writes),
+          f"process 0 wrote {writes}")
+    check(not ranks[1]["writes"] and not os.path.exists(os.path.join(workdir, "train1")),
+          f"process 1 wrote {ranks[1]['writes']}")
+    log_dir = os.path.join(workdir, "train0")
+    with open(os.path.join(log_dir, "metrics_validation.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(log_dir, "metrics_train.jsonl")) as f:
+        train_records = [json.loads(line) for line in f]
+    steps = [HARNESS_VALIDATION_FREQUENCY * (i + 1) for i in range(validations)]
+    check([r["step"] for r in records] == steps and [r["step"] for r in train_records] == steps,
+          f"metrics records: validation {records}, train {train_records}")
+    data = LIDCData(synthetic.lidc_splits(HARNESS_SPLITS, IMAGE, seed=0), seed=0)
+    one = Trainer(dp_train_config(), dev, seed=0, log_dir=os.path.join(workdir, "train_one"))
+    start = {n: p.detach().clone() for n, p in one.state.model.named_parameters()}
+    t0 = time.perf_counter()
+    one.train(data)
+    one_s = time.perf_counter() - t0
+    one.close()
+    got = ranks[0]["state"]["model"]
+    moved = math.sqrt(sum((p.detach() - start[n]).double().square().sum().item()
+                          for n, p in one.state.model.named_parameters()))
+    apart = math.sqrt(sum((got[n].to(dev) - p.detach()).double().square().sum().item()
+                          for n, p in one.state.model.named_parameters()))
+    worst = max((got[n].to(dev) - p.detach()).abs().max().item() for n, p in one.state.model.named_parameters())
+    check(apart <= DP_TRAIN_REL_MOVE * moved, f"train(): {DP_RANKS} processes end {apart:.4e} from one process's "
+          f"parameters, which moved {moved:.4e}")
+    log(f"[dp] (c) Trainer.train({HARNESS_ITERATIONS}) bf16 unet bs{TRAIN_BATCH} on {DP_RANKS} processes, a "
+        f"validation every {HARNESS_VALIDATION_FREQUENCY} on process 0 alone: processes bit-identical; process 0 wrote "
+        f"{writes} and one metrics record a validation and a log step, process 1 nothing (no log directory); final "
+        f"parameters {apart:.4e} from one process's run (L2), which moved them {moved:.4e} (tol "
+        f"{DP_TRAIN_REL_MOVE} of it), worst entry {worst / dp_train_config().learning_rate:.3f} lr; train() "
+        f"{ranks[0]['train_s']:.2f} s on {DP_RANKS} processes, {one_s:.2f} s on one | card: {card}")
+    result["train"] = {"apart_of_moved": apart / moved, "writes": writes, "train_s": ranks[0]["train_s"],
+                       "one_train_s": one_s}
+    return result
+
+
+def dp_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 12: data parallelism."""
+    t0 = time.perf_counter()
+    world1 = dp_world1(conv_chain, dev, card, log_root)
+    torch.cuda.empty_cache()
+    ranks = dp_ranks(conv_chain, dev, card, log_root)
+    log(f"[dp] phase 12 took {time.perf_counter() - t0:.1f} s | card: {card}")
+    return {"world1": world1, "ranks": ranks}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -2758,8 +3145,12 @@ def main() -> int:
 
         # 11. the UZH prostate path
         uzh = uzh_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
-    log(f"[env] phases 1-11 took {time.perf_counter() - started:.1f} s")
+        # 12. data parallelism
+        dp = dp_phase(conv_chain, dev, card, log_root)
+
+    log(f"[env] phases 1-12 took {time.perf_counter() - started:.1f} s")
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]
     log(json.dumps({"kernels": [{
@@ -2820,6 +3211,13 @@ def main() -> int:
         "uzh_512_step_ms": {k: v["ms"] for k, v in uzh["steps"].items()},
         "uzh_512_step_peak_mib": {k: v["peak_mib"] for k, v in uzh["steps"].items()},
         "uzh_512_validation": uzh["evaluation"],
+        # phase 12: launches of each one-process NCCL mesh U-Net step, and of
+        # each f32 U-Net step on each of the two gloo processes
+        "dp_world1_step_launches": dp["world1"]["unet"]["launches"],
+        "dp_world1_step_ms": {k: v["ms"] for k, v in dp["world1"].items()},
+        "dp_world1_plain_step_ms": {k: v["plain_ms"] for k, v in dp["world1"].items()},
+        "dp_two_process_f32_step_launches": [r["launches"] for r in dp["ranks"]["unet"]],
+        "dp_two_process_step_ms": {k: [r["ms"] for r in dp["ranks"][k]] for k in ("unet", PHISEG_EXPERIMENT)},
     }, {
         "name": "fused_conv_chain_f32",
         "kernel": F32_ROUTE,
@@ -2852,4 +3250,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -353,6 +353,35 @@ def root_logging():
     root.setLevel(level)
 
 
+def test_eval_cli_exports_ten_samples_whatever_num_samples_says(tmp_path, monkeypatch, root_logging):
+    """``eval_main --num-samples 2 --export-predictions``: the test sweep
+    decodes 2 samples a volume, the export the method's default of 10, as
+    the JAX CLI calls ``trainer.export_predictions(data)``."""
+    import inspect
+
+    from unet_zoo_tpu_torch.training import cli
+
+    monkeypatch.chdir(tmp_path)
+    cfg = dataclasses.replace(ExperimentConfig(**EVAL), experiment_name="CliBratsSamples")
+    with open("exp.py", "w") as f:
+        f.write("from unet_zoo_tpu_torch.experiments import ExperimentConfig\n"
+                f"config = ExperimentConfig(**{ {k: v for k, v in dataclasses.asdict(cfg).items() if v is not None}!r})\n")
+    calls = {}
+    monkeypatch.setattr(cli, "_build_data", lambda *args: "data")
+    monkeypatch.setattr(Trainer, "test", lambda self, data, **kw: calls.setdefault("test", kw["num_samples"]))
+    export = Trainer.export_predictions
+
+    def recorded(self, *args, **kwargs):
+        bound = inspect.signature(export).bind(self, *args, **kwargs)
+        bound.apply_defaults()
+        calls["export"] = bound.arguments["num_samples"]
+
+    monkeypatch.setattr(Trainer, "export_predictions", recorded)
+    assert eval_main(["exp.py", "--log-root", "runs", "--num-samples", "2", "--device", "cpu",
+                      "--export-predictions"]) == 0
+    assert calls == {"test": 2, "export": 10}
+
+
 def test_eval_cli_exports_predictions(tmp_path, monkeypatch, root_logging):
     """``eval_main --export-predictions`` end to end on the CPU: the BraTS
     cache found under ``preproc_folder`` as the system config names it,

@@ -160,7 +160,7 @@ def test_function_matches_autograd(dtype):
     x, g = (torch.randn((4, 16, 16, 16), generator=gen) for _ in range(2))
 
     def function(x, p):
-        return reversible.ReversibleChain.apply(x, *p)[0]
+        return reversible.ReversibleChain.apply(x, None, *p)[0]
 
     def autograd(x, p):
         return reversible.coupling_chain(x, reversible._blocks(p))[0]

@@ -172,7 +172,8 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.training.schedule, unet_zoo_tpu_torch.training.state, "
             "unet_zoo_tpu_torch.training.trainer, unet_zoo_tpu_torch.training.cli, "
             "unet_zoo_tpu_torch.models.phiseg, unet_zoo_tpu_torch.models.prob_unet, unet_zoo_tpu_torch.ops.norm, "
-            "unet_zoo_tpu_torch.ops.reversible, "
+            "unet_zoo_tpu_torch.ops.reversible, unet_zoo_tpu_torch.parallel, unet_zoo_tpu_torch.parallel.mesh, "
+            "unet_zoo_tpu_torch.parallel.space, "
             "unet_zoo_tpu_torch.metrics, unet_zoo_tpu_torch.metrics.dice, unet_zoo_tpu_torch.metrics.ged, "
             "unet_zoo_tpu_torch.metrics.ncc, unet_zoo_tpu_torch.utils, unet_zoo_tpu_torch.utils.summary, "
             "unet_zoo_tpu_torch.train, unet_zoo_tpu_torch.eval; "

@@ -132,6 +132,13 @@ class Augment3DParams(NamedTuple):
     flip: torch.Tensor  # (B, 3) bool: flip D, H, W
 
 
+def take_rows(params, rows: slice):
+    """Rows ``rows`` of an ``AugmentParams`` or ``Augment3DParams``, whose
+    every field is batch-leading: a data-parallel rank's share of the
+    global batch's draws."""
+    return type(params)(*(t[rows] for t in params))
+
+
 def _check(opts: AugmentOptions) -> None:
     if opts.label_interp not in LABEL_INTERPS:
         raise ValueError(f"label_interp must be one of {LABEL_INTERPS}, got '{opts.label_interp}'")

@@ -301,6 +301,21 @@ class PHiSeg(nn.Module):
         out["s_list"] = self.likelihood(out["post_z"] if teacher is not None else out["prior_z"])
         return out
 
+    def train_noise(self, batch: int, spatial: Sequence[int], generator: torch.Generator, device) -> Levels:
+        """The posterior's z noise of a train-mode ``forward`` on a batch of
+        ``batch`` images of ``spatial`` size, drawn from ``generator`` as
+        the forward draws it: one (batch, *s, zdim) tensor a latent level,
+        the coarsest first (level L - 1 at the encoder's last resolution,
+        each finer one a resolution up; the encoder halves with ceil).
+        Returned indexed by level, as ``post_eps``."""
+        R, L = self.posterior.num_levels, self.latent_levels
+        sizes = [tuple(spatial)]
+        for _ in range(R - 1):
+            sizes.append(tuple(-(-s // 2) for s in sizes[-1]))
+        eps = [torch.randn((batch, *sizes[lvl + R - L], self.posterior.zdim), generator=generator, device=device)
+               for lvl in range(L - 1, -1, -1)]
+        return eps[::-1]
+
     def sample(self, x: torch.Tensor, n: int, eps: Optional[Levels] = None,
                generator: Optional[torch.Generator] = None, chunk: Optional[int] = None) -> torch.Tensor:
         """n prior samples, with BatchNorm's running statistics whatever the

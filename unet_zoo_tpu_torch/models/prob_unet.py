@@ -173,6 +173,7 @@ class ProbUNet(nn.Module):
         if no_convs_fcomb < 1:
             raise ValueError(f"no_convs_fcomb must be >= 1, got {no_convs_fcomb}")
         self.kl_parity = kl_parity
+        self.latent_dim = latent_dim
         num_filters = tuple(num_filters)
         kw = dict(reversible_mode=reversible_mode, dtype=dtype, device=device, generator=generator)
         self.unet = UNet(num_classes, num_filters, in_channels, apply_last_layer=False, **kw)
@@ -210,6 +211,13 @@ class ProbUNet(nn.Module):
                 post_eps = torch.randn(mu.shape, generator=generator or self.generator, device=mu.device)
             out["recon"] = self.fcomb(feat, mu + sigma * post_eps)
         return out
+
+    def train_noise(self, batch: int, spatial: Sequence[int], generator: torch.Generator, device) -> torch.Tensor:
+        """The posterior's z noise of a ``forward`` with the mask on a batch
+        of ``batch`` images, drawn from ``generator`` as the forward draws
+        it: one (batch, latent_dim) tensor (``spatial`` is not read).
+        Passed as ``post_eps``."""
+        return torch.randn((batch, self.latent_dim), generator=generator, device=device)
 
     def sample(self, x: torch.Tensor, n: int, eps: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -20,7 +20,11 @@ BatchNorm makes the blocks carry state: in train mode f and g normalise
 with the batch's float32 statistics (so the inverse recomputes the same
 function) and return them; ``ReversibleSequence`` folds them into its
 running statistics once a step (momentum 0.01, the unbiased variance). In
-eval mode it runs the plain chain on the running statistics.
+eval mode it runs the plain chain on the running statistics. Where a
+sequence's ``process_group`` is set (``parallel.mesh.sync_batch_norm``),
+the train-mode statistics are those of the group's global batch
+(``norm.group_moments``), in the forward and in the backward's re-runs
+alike, so every rank reconstructs with the same statistics.
 
 The JAX package packs the halves to rank 3 and scans over the blocks to fix
 a TPU's lane padding and scheduling (``_pack``, ``lax.scan``); a GPU needs
@@ -38,6 +42,7 @@ from torch.autograd.function import once_differentiable
 
 from unet_zoo_tpu_torch.ops import init as init_lib
 from unet_zoo_tpu_torch.ops.conv import ConvBNAct, Tensors, _concat, _ZeroGrad, remat
+from unet_zoo_tpu_torch.ops.norm import group_moments
 
 BN_EPS = 1e-3
 MOMENTUM = 0.01  # torch style: the weight of the new batch statistic
@@ -47,19 +52,23 @@ Stats = Tuple[torch.Tensor, torch.Tensor]  # mean, variance
 
 
 def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-        ema: Optional[Stats] = None) -> Tuple[torch.Tensor, Stats]:
+        ema: Optional[Stats] = None, group=None) -> Tuple[torch.Tensor, Stats]:
     """The coupling function on NHWC or NDHWC ``x``: conv3x3(x3) with operands in
     ``x.dtype``, the bias added in float32 with an exact zero gradient (the
     JAX package stops it; Adam still decays it), BatchNorm in float32 (float64
     for a float64 ``x``; eps 1e-3), ReLU, cast back to ``x.dtype``. In train
     mode (``ema`` None) it normalises with the batch's mean and
     ``max(E[y^2] - E[y]^2, 0)`` and returns (out, (mean, unbiased
-    variance)); else it normalises with ``ema`` and returns it. It touches no
-    buffer, so the backward can run it again."""
+    variance)); else it normalises with ``ema`` and returns it. With a
+    process ``group`` the train-mode statistics are the group's. It touches
+    no buffer, so the backward can run it again."""
     conv = F.conv2d if x.ndim == 4 else F.conv3d
     y = conv(x.movedim(-1, 1), kernel.to(x.dtype), padding=1).movedim(1, -1)
     yf = y.to(torch.promote_types(y.dtype, torch.float32)) + _ZeroGrad.apply(bias)
-    if ema is None:
+    if ema is None and group is not None:
+        mean, var, n = group_moments(yf, group)
+        stats = (mean, var * (n / max(n - 1, 1)))
+    elif ema is None:
         axes = tuple(range(yf.ndim - 1))
         mean = yf.mean(axes)
         var = torch.clamp_min(yf.square().mean(axes) - mean.square(), 0.0)
@@ -72,29 +81,31 @@ def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.
 
 
 def coupling_chain(x: torch.Tensor, blocks: Sequence[Tuple[FG, FG]],
-                   ema: Optional[Sequence[Tuple[Stats, Stats]]] = None) -> Tuple[torch.Tensor, List[Tuple[Stats, Stats]]]:
+                   ema: Optional[Sequence[Tuple[Stats, Stats]]] = None,
+                   group=None) -> Tuple[torch.Tensor, List[Tuple[Stats, Stats]]]:
     """The coupling blocks in order, differentiable by autograd (which then
     stores every activation): (y, each block's (f, g) statistics). ``ema``
-    gives each block's running statistics for eval mode."""
+    gives each block's running statistics for eval mode; ``group`` the
+    process group of train-mode statistics."""
     c = x.shape[-1] // 2
     x1, x2 = x[..., :c], x[..., c:]
     stats = []
     for i, (pf, pg) in enumerate(blocks):
-        f_out, f_stats = _fg(x2, *pf, ema=ema[i][0] if ema else None)
+        f_out, f_stats = _fg(x2, *pf, ema=ema[i][0] if ema else None, group=group)
         y1 = x1 + f_out
-        g_out, g_stats = _fg(y1, *pg, ema=ema[i][1] if ema else None)
+        g_out, g_stats = _fg(y1, *pg, ema=ema[i][1] if ema else None, group=group)
         x1, x2 = y1, x2 + g_out
         stats.append((f_stats, g_stats))
     return torch.cat([x1, x2], dim=-1), stats
 
 
-def _vjp(x: torch.Tensor, p: FG, cotangent: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+def _vjp(x: torch.Tensor, p: FG, cotangent: torch.Tensor, group=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """A coupling function at (x, p), run again in train mode: (its output,
     the cotangent's vector-Jacobian product for x and each of p)."""
     with torch.enable_grad():
         x = x.detach().requires_grad_()
         p = [t.detach().requires_grad_() for t in p]
-        out, _ = _fg(x, *p)
+        out, _ = _fg(x, *p, group=group)
         grads = torch.autograd.grad(out, (x, *p), cotangent)
     return out.detach(), grads
 
@@ -106,7 +117,8 @@ def _blocks(params: Sequence[torch.Tensor]) -> List[Tuple[FG, FG]]:
 
 class ReversibleChain(torch.autograd.Function):
     """Train-mode coupling blocks that keep only their output for the backward:
-    ``apply(x, *params)``, params per block (f kernel, bias, scale, shift, g
+    ``apply(x, group, *params)`` (``group`` the process group of the batch
+    statistics, or None), params per block (f kernel, bias, scale, shift, g
     kernel, bias, scale, shift), returns (y, then each block's f mean, f
     variance, g mean, g variance, which have no gradient).
 
@@ -118,8 +130,9 @@ class ReversibleChain(torch.autograd.Function):
     The twin of ``_rev_chain_train`` and its custom VJP."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, *params: torch.Tensor):
-        y, stats = coupling_chain(x, _blocks(params))
+    def forward(ctx, x: torch.Tensor, group, *params: torch.Tensor):
+        y, stats = coupling_chain(x, _blocks(params), group=group)
+        ctx.group = group
         flat = [t for block in stats for pair in block for t in pair]
         ctx.mark_non_differentiable(*flat)
         ctx.set_materialize_grads(False)
@@ -137,15 +150,15 @@ class ReversibleChain(torch.autograd.Function):
         g1, g2 = grad_y[..., :c], grad_y[..., c:]
         grads: List[torch.Tensor] = []
         for pf, pg in reversed(_blocks(params)):
-            g_out, (dy1, *dpg) = _vjp(y1, pg, g2)
+            g_out, (dy1, *dpg) = _vjp(y1, pg, g2, ctx.group)
             x2 = y2 - g_out
             g1 = g1 + dy1
-            f_out, (dx2, *dpf) = _vjp(x2, pf, g1)
+            f_out, (dx2, *dpf) = _vjp(x2, pf, g1, ctx.group)
             y1, y2 = y1 - f_out, x2
             g2 = g2 + dx2
             grads[:0] = [*dpf, *dpg]
         grad_x = torch.cat([g1, g2], dim=-1) if ctx.needs_input_grad[0] else None
-        return (grad_x, *grads)
+        return (grad_x, None, *grads)
 
 
 class ReversibleSequence(nn.Module):
@@ -191,6 +204,7 @@ class ReversibleSequence(nn.Module):
                     self.register_parameter(f"{name}_{leaf}", nn.Parameter(value.to(device)))
                 self.register_buffer(f"{name}_mean", torch.zeros(c, device=device))
                 self.register_buffer(f"{name}_var", torch.ones(c, device=device))
+        self.process_group = None  # set for cross-rank statistics in train mode
 
     def blocks(self) -> List[Tuple[FG, FG]]:
         """Each block's (f, g) parameters: (kernel, bias, scale, shift) each."""
@@ -210,10 +224,10 @@ class ReversibleSequence(nn.Module):
             return coupling_chain(x, blocks, self.running_stats())[0]
         params = [t for block in blocks for p in block for t in p]
         if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-            y, *flat = ReversibleChain.apply(x, *params)
+            y, *flat = ReversibleChain.apply(x, self.process_group, *params)
         else:
             with torch.no_grad():
-                y, stats = coupling_chain(x, blocks)
+                y, stats = coupling_chain(x, blocks, group=self.process_group)
             flat = [t for block in stats for pair in block for t in pair]
         running = [t for block in self.running_stats() for pair in block for t in pair]
         with torch.no_grad():

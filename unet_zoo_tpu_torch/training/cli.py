@@ -1,17 +1,30 @@
 """Command-line entry points of the PyTorch port, the twin of
 ``unet_zoo_tpu.training.cli``:
 
-    python -m unet_zoo_tpu_torch.train EXP [--local] [--iterations N] [--log-root DIR] [--resume [CKPT]]
+    python -m unet_zoo_tpu_torch.train EXP [--local] [--iterations N] [--log-root DIR] [--resume [CKPT]] [MESH]
     python -m unet_zoo_tpu_torch.eval  EXP [--local] [--checkpoint best_loss] [--num-repeats R] [--num-samples N]
-                                           [--export-predictions]
+                                           [--export-predictions] [MESH]
+    MESH: [--mesh data=N[,space=K]] [--space K] [--coordinator HOST:PORT --num-processes N --process-id I]
 
 EXP is a registry name (e.g. ``phiseg_7_5_12``) or the path of a ``.py``
 file that defines ``config = ExperimentConfig(...)``; the definition is
 copied into the log directory. Both run on the CUDA card unless given
 ``--device cpu``, and raise where there is no card. ``--export-predictions``
 (BraTS) writes each evaluated volume's label map as NIfTI after the test
-sweep. The JAX CLI's mesh flags (multi-device) and its image export are not
-ported.
+sweep, from 10 samples a volume whatever ``--num-samples`` says, as the JAX
+CLI does. The JAX CLI's image export is not ported.
+
+Data parallelism: the JAX CLI's mesh flags, parsed as it parses them. One
+JAX process drives every visible device, a process here drives one card (or
+the CPU): so with no flags the run is one process on one card, and
+``--mesh data=N`` with N > 1 takes N processes, each started with the same
+``--coordinator`` (process 0's HOST:PORT), ``--num-processes N`` and its own
+``--process-id``; ``--num-processes N`` alone means ``data=N``. The global
+batch (``batch_size``) must split evenly over them. Process 0 alone writes
+the log file, the provenance, the metrics and the checkpoints; in ``eval``
+it runs the test sweep while the others wait at a barrier. The space axis
+(``--space``, ``space=K``) above 1 is not built (``parallel/space.py``) and
+fails with a message.
 """
 
 from __future__ import annotations
@@ -24,22 +37,28 @@ import os
 import shutil
 import sys
 
+from typing import Optional
+
+import torch.distributed as dist
+
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig, load_experiment
+from unet_zoo_tpu_torch.parallel.mesh import Mesh, barrier, init_distributed, make_mesh, process_index
+from unet_zoo_tpu_torch.parallel.space import check_space
 from unet_zoo_tpu_torch.training.trainer import Trainer
 
 
-def setup_logger(log_dir: str) -> logging.Logger:
-    """Per-run file and console logging."""
-    os.makedirs(log_dir, exist_ok=True)
+def setup_logger(log_dir: str, to_file: bool = True) -> logging.Logger:
+    """Per-run console logging, and the ``run.log`` file where ``to_file``."""
     root = logging.getLogger()
     root.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(name)s %(message)s")
-    fh = logging.FileHandler(os.path.join(log_dir, "run.log"))
-    fh.setFormatter(fmt)
-    sh = logging.StreamHandler(sys.stdout)
-    sh.setFormatter(fmt)
-    root.addHandler(fh)
-    root.addHandler(sh)
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if to_file:
+        os.makedirs(log_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(log_dir, "run.log")))
+    for handler in handlers:
+        handler.setFormatter(fmt)
+        root.addHandler(handler)
     return root
 
 
@@ -74,16 +93,79 @@ def _common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--sys-config", default=None, help="path config json")
     p.add_argument("--log-root", default=None)
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
+    p.add_argument("--mesh", default=None, metavar="SPEC",
+                   help="data-parallel mesh 'data=N[,space=K]': N processes, one a card, each started with "
+                        "--coordinator, --num-processes N and its --process-id; 'none' trains each process alone")
+    p.add_argument("--space", type=int, default=None, metavar="K",
+                   help="shard the image height K-ways (not built above 1)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process 0's address, the same in every process of a multi-process run")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+
+
+def make_cli_mesh(args, batch_size: int) -> Optional[Mesh]:
+    """The mesh the flags ask for, or None for one process alone: joins the
+    process group where ``--coordinator`` or ``--num-processes`` is given,
+    then parses ``--mesh``/``--space`` as the JAX CLI does. Fails with a
+    message (``SystemExit``) for a bad component, a space axis above 1, a
+    data axis that is not the number of processes, or a global batch that
+    does not split over it."""
+    if args.coordinator is not None or args.num_processes is not None:
+        init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
+    if args.mesh == "none":
+        return None
+    data = space = None
+    for part in args.mesh.split(",") if args.mesh is not None else ():
+        k, sep, v = part.partition("=")
+        if not sep or k not in ("data", "space") or not v.isdigit():
+            raise SystemExit(f"--mesh: bad component {part!r} (want data=N[,space=K])")
+        if k == "data":
+            data = int(v)
+        else:
+            space = int(v)
+    if args.space is not None:
+        if space is not None and space != args.space:
+            raise SystemExit("--space contradicts --mesh's space=")
+        space = args.space
+    try:
+        check_space(space or 1)
+    except NotImplementedError as e:
+        raise SystemExit(f"--mesh/--space: {e}") from None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if data is not None and data != world:
+        raise SystemExit(f"--mesh data={data} takes {data} processes, one a card, each started with --coordinator "
+                         f"HOST:PORT --num-processes {data} --process-id I; this run has {world}")
+    if data is None and world == 1:
+        return None
+    if batch_size % world:
+        raise SystemExit(f"the global batch {batch_size} does not split evenly over {world} data-parallel processes")
+    return make_mesh(world, device=args.device)
 
 
 def _setup(args) -> tuple:
+    """(experiment, system config, log directory, mesh); logging, into the
+    log directory on process 0 alone."""
     cfg = load_experiment(args.experiment)
     sys_cfg = _load_sys_config(args)
     if args.log_root:
         sys_cfg = dataclasses.replace(sys_cfg, log_root=args.log_root)
     log_dir = os.path.join(sys_cfg.log_root, cfg.log_dir_name, cfg.experiment_name)
-    setup_logger(log_dir)
-    return cfg, sys_cfg, log_dir
+    mesh = make_cli_mesh(args, cfg.batch_size)
+    setup_logger(log_dir, to_file=process_index() == 0)
+    return cfg, sys_cfg, log_dir, mesh
+
+
+def _trainer(args, cfg, sys_cfg, log_dir, mesh) -> Trainer:
+    return Trainer(cfg, device=None if mesh is not None else args.device, sys_config=sys_cfg, log_dir=log_dir,
+                   mesh=mesh)
+
+
+def _finish(trainer: Trainer) -> None:
+    """Closes the metrics streams and leaves the process group."""
+    trainer.close()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def train_main(argv=None) -> int:
@@ -96,10 +178,11 @@ def train_main(argv=None) -> int:
                         "scheduler, step, generator and the best metrics so far")
     args = p.parse_args(argv)
 
-    cfg, sys_cfg, log_dir = _setup(args)
-    _copy_provenance(args.experiment, cfg, log_dir)
+    cfg, sys_cfg, log_dir, mesh = _setup(args)
+    if process_index() == 0:
+        _copy_provenance(args.experiment, cfg, log_dir)
 
-    trainer = Trainer(cfg, device=args.device, sys_config=sys_cfg, log_dir=log_dir)
+    trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
     try:
         if args.resume is not None:
             trainer.restore(args.resume)
@@ -108,7 +191,7 @@ def train_main(argv=None) -> int:
         trainer.train(data, iterations=args.iterations, validate=not args.no_validate)
         trainer.save_model("last")
     finally:
-        trainer.close()
+        _finish(trainer)
     return 0
 
 
@@ -123,16 +206,18 @@ def eval_main(argv=None) -> int:
                         "reassembled to the original geometry where the cache carries crop offsets)")
     args = p.parse_args(argv)
 
-    cfg, sys_cfg, log_dir = _setup(args)
+    cfg, sys_cfg, log_dir, mesh = _setup(args)
     if args.export_predictions and not (cfg.is_3d and cfg.data_loader == "brats"):
         p.error("--export-predictions is a BraTS (3D) flow")
 
-    trainer = Trainer(cfg, device=args.device, sys_config=sys_cfg, log_dir=log_dir)
+    trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
     try:
-        data = _build_data(cfg, sys_cfg)
-        trainer.test(data, num_repeats=args.num_repeats, num_samples=args.num_samples, checkpoint=args.checkpoint)
-        if args.export_predictions:
-            trainer.export_predictions(data, num_samples=args.num_samples)
+        if trainer.is_main:  # the others wait at the barrier
+            data = _build_data(cfg, sys_cfg)
+            trainer.test(data, num_repeats=args.num_repeats, num_samples=args.num_samples, checkpoint=args.checkpoint)
+            if args.export_predictions:
+                trainer.export_predictions(data)  # the method's 10 samples, as the JAX CLI
+        barrier("eval")
     finally:
-        trainer.close()
+        _finish(trainer)
     return 0

@@ -1,6 +1,6 @@
 """The training harness, the twin of ``unet_zoo_tpu.training.trainer.Trainer``
 (the U-Net, ProbUNet, PHiSeg and PHiSeg3D families, 2D and 3D device
-augmentation, one card).
+augmentation, one card, or one card a process over a data-parallel mesh).
 
 The train step, all on the device and with no host sync: augmentation
 (draws from the state's generator) -> the model in train mode (the U-Net's
@@ -26,6 +26,24 @@ up ``EVAL_IMAGE_WINDOW`` images at a time (labels as uint8, widened on the
 card), and at most ``EVAL_WINDOW`` windows of images, or volumes, are in
 flight, each fetched into page-locked memory behind an event, so the host
 reads one while the card computes the next.
+
+Data parallelism (``mesh``, ``parallel.make_mesh``; one process alone holds
+``parallel.local_mesh``), the twin of the JAX ``Trainer(mesh=...)``, which
+jits the one-device step on the global batch with sharded inputs: every
+process reads the same global batch from its
+identically seeded provider and keeps its rows (``parallel.shard_batch``);
+it draws the global batch's augmentation and z noise from the state's
+generator, which is equal on every process, and keeps its rows of them;
+BatchNorm's train-mode statistics are the group's (at world > 1); the
+gradients are averaged over the processes in one flat all-reduce after the
+backward, and the loss terms before the plateau scheduler, so every process
+takes the same Adam step at the same learning rate. Every loss term is a
+batch mean of per-image sums, so the mean of equal shards' gradients is the
+global batch's gradient: a step at any world size computes the one-process
+step on the global batch, up to float32 summation order. At world 1 every
+collective returns at once, and the step is bit for bit the one in which
+the model draws its own z noise. Process 0 alone validates, logs and writes checkpoints and
+metrics; evaluation runs every model in eval mode and issues no collective.
 
 Evaluation draws its z noise from a device generator seeded from (seed,
 step, salt, image index) (``eval_generator``), never from the train
@@ -54,12 +72,25 @@ from unet_zoo_tpu_torch.data.augment import (
     AugmentParams,
     sample_augment_3d_params,
     sample_augment_params,
+    take_rows,
     warp_batch_2d,
     warp_batch_3d,
 )
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig
-from unet_zoo_tpu_torch.models.registry import get_model, resolve_device
+from unet_zoo_tpu_torch.models.registry import get_model
 from unet_zoo_tpu_torch.ops.conv import chain_route
+from unet_zoo_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_grads_,
+    barrier,
+    batch_spec,
+    local_mesh,
+    mean_over_processes,
+    process_index,
+    replicated,
+    shard_batch,
+    sync_batch_norm,
+)
 from unet_zoo_tpu_torch.training.schedule import plateau_init, plateau_update
 from unet_zoo_tpu_torch.training.state import TrainState, restore_checkpoint, save_checkpoint
 from unet_zoo_tpu_torch.utils.summary import MetricsWriter
@@ -126,7 +157,7 @@ def adam_coupled_l2(params, lr: float, weight_decay: float = 0.0, b1: float = 0.
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, device=None, seed: Optional[int] = None,
                  sys_config: Optional[SystemConfig] = None, log_dir: Optional[str] = None, tensorboard: bool = True,
-                 tf32: bool = False):
+                 tf32: bool = False, mesh: Optional[Mesh] = None):
         """Builds the model (weights drawn on the CPU from a generator
         seeded from ``seed``, default ``cfg.seed``, then moved to
         ``device``, by default the CUDA card), the optimizer and the train
@@ -142,13 +173,31 @@ class Trainer:
         on the U-Net, beyond the 1e-4 the card's f32 parity checks hold): a
         float32 experiment then computes what the CPU and the tests compute,
         and a bf16 one keeps its float32 parts (BatchNorm statistics, losses,
-        metrics) in float32. Both flags are logged beside the chain route."""
+        metrics) in float32. Both flags are logged beside the chain route.
+
+        ``mesh`` (``parallel.make_mesh``; by default ``parallel.local_mesh``
+        on ``device``, this process alone) makes the step data-parallel over
+        its processes, each on the mesh's device: ``cfg.batch_size`` is the
+        global batch and must split evenly over them. Every process must
+        build its Trainer from the same configuration and seed; at world > 1
+        the BatchNorm statistics are the group's, and the construction
+        checks that every process holds the same state (raises if not).
+        Only process 0 of the process group (the one process where there is
+        none) creates the log directory and the metrics streams."""
         cfg.validate()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = local_mesh(device)
+        elif device is not None and torch.device(device) not in (mesh.device, torch.device(mesh.device.type)):
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        batch_spec(mesh, cfg.batch_size)  # raises where the batch does not split
+        self.mesh = mesh
+        self.is_main = process_index() == 0
+        self.device = mesh.device
         self.sys_config = sys_config or SystemConfig()
         self.log_dir = log_dir or os.path.join(self.sys_config.log_root, cfg.log_dir_name, cfg.experiment_name)
-        os.makedirs(self.log_dir, exist_ok=True)
+        if self.is_main:
+            os.makedirs(self.log_dir, exist_ok=True)
         self.seed = cfg.seed if seed is None else seed
         # two seeds split from one, as the JAX trainer splits its root key
         k_params, k_aug = torch.randint(2 ** 62, (2,), generator=torch.Generator().manual_seed(self.seed)).tolist()
@@ -168,10 +217,21 @@ class Trainer:
             sched=plateau_init(cfg.learning_rate, self.device),
             generator=torch.Generator(device=self.device).manual_seed(k_aug),
         )
+        if mesh.world > 1:
+            sync_batch_norm(model, mesh.group)
+            state = [*model.parameters(), *model.buffers(), self.state.generator.get_state()]
+            if not replicated(mesh, state):
+                raise RuntimeError("the processes' train states differ: every process must build its Trainer from "
+                                   "the same configuration and seed")
+            log.info("process %d of %d: global batch %d, %d a process; BatchNorm statistics over the group",
+                     mesh.rank, mesh.world, cfg.batch_size, cfg.batch_size // mesh.data)
         self.iteration = 0
         self.best = {"dice": -1.0, "loss": math.inf, "ged": math.inf, "ncc": -1.0}
-        self.training_writer = MetricsWriter(self.log_dir, "train", tensorboard=tensorboard)
-        self.validation_writer = MetricsWriter(self.log_dir, "validation", tensorboard=tensorboard)
+        # the metrics streams are process 0's (None elsewhere)
+        self.training_writer = self.validation_writer = None
+        if self.is_main:
+            self.training_writer = MetricsWriter(self.log_dir, "train", tensorboard=tensorboard)
+            self.validation_writer = MetricsWriter(self.log_dir, "validation", tensorboard=tensorboard)
         if cfg.pretrained_model is not None:
             path = os.path.join(self.log_dir, cfg.pretrained_model)
             if os.path.exists(path):
@@ -182,46 +242,66 @@ class Trainer:
 
     # the phases of one step, in order (``chip_smoke.py`` times each)
 
+    def _global(self, batch: int) -> Tuple[int, slice]:
+        """(the global batch, this process's rows of it) for a local batch."""
+        total = batch * self.mesh.data
+        return total, batch_spec(self.mesh, total)
+
     def augment(self, x: torch.Tensor, y: torch.Tensor,
                 aug_params: Optional[AnyAugmentParams] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Move the batch to the device and warp it with ``aug_params``
         (``AugmentParams``, or ``Augment3DParams`` for a 3D experiment), or
-        with draws from the state's generator."""
+        with draws from the state's generator. x and y are this process's
+        rows, and the draws, given or drawn, are the global batch's, of
+        which it keeps its rows (all of them in one process)."""
         x, y = x.to(self.device), y.to(self.device)
+        total, rows = self._global(x.shape[0])
         if self.cfg.is_3d:
             opts = self.cfg.augmentation_options_3d
             if opts is None:
                 return x, y
             if aug_params is None:
-                aug_params = sample_augment_3d_params(self.state.generator, x.shape[0], x.shape[-1], opts,
-                                                      self.device)
-            return warp_batch_3d(x, y, aug_params, opts)
+                aug_params = sample_augment_3d_params(self.state.generator, total, x.shape[-1], opts, self.device)
+            return warp_batch_3d(x, y, take_rows(aug_params, rows), opts)
         opts = self.cfg.augmentation_options
         if opts is None:
             return x, y
         if aug_params is None:
-            aug_params = sample_augment_params(self.state.generator, x.shape[0], tuple(x.shape[1:3]),
-                                               opts, self.device)
-        return warp_batch_2d(x, y, aug_params, opts)
+            aug_params = sample_augment_params(self.state.generator, total, tuple(x.shape[1:3]), opts, self.device)
+        return warp_batch_2d(x, y, take_rows(aug_params, rows), opts)
 
     def forward_loss(self, x: torch.Tensor, y: torch.Tensor, z_eps=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The model in train mode (an evaluation may have left it in eval
         mode) and its loss. ``z_eps`` replaces the posterior's z noise: for
         PHiSeg one tensor a latent level, for ProbUNet one (B, latent_dim)
-        tensor."""
+        tensor. The noise, given or drawn from the state's generator
+        (``model.train_noise``, in the forward's own order), is the global
+        batch's, and this process decodes its rows."""
         model = self.state.model
         model.train()
-        if self.cfg.model in LATENT_FAMILIES:
-            return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
-        return model.loss(model(x), y)
+        if self.cfg.model not in LATENT_FAMILIES:
+            return model.loss(model(x), y)
+        total, rows = self._global(x.shape[0])
+        if z_eps is None:
+            z_eps = model.train_noise(total, x.shape[1:-1], self.state.generator, self.device)
+        z_eps = [e[rows] for e in z_eps] if isinstance(z_eps, (list, tuple)) else z_eps[rows]
+        return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
 
     def backward(self, loss: torch.Tensor) -> None:
+        """The gradients of ``loss``, each its mean over the mesh's
+        processes (one all-reduce of every gradient in one flat buffer)."""
         self.state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(self.mesh, self.state.model.parameters())
 
     def update(self, loss: torch.Tensor) -> None:
-        """The plateau scheduler on this step's loss, then Adam at its rate."""
+        """The plateau scheduler on this step's loss (its mean over the
+        mesh's processes, so that every process keeps one learning rate),
+        then Adam at its rate."""
+        self._update(mean_over_processes(self.mesh, {"loss": loss})["loss"])
+
+    def _update(self, loss: torch.Tensor) -> None:
         cfg, state = self.cfg, self.state
         state.sched = plateau_update(state.sched, loss, factor=cfg.lr_plateau_factor,
                                      patience=cfg.lr_plateau_patience, min_lr=cfg.min_lr)
@@ -236,12 +316,15 @@ class Trainer:
         or for a 3D BraTS experiment (B, *S, 3) one-hot float WT/TC/ET.
         ``aug_params`` (``AugmentParams``, ``Augment3DParams``) and ``z_eps``
         (ProbUNet, PHiSeg) replace the step's own draws (tests inject the JAX
-        package's). Returns the loss's aux dict as device tensors."""
+        package's). x and y are this process's rows of the global batch,
+        and ``aug_params`` and ``z_eps`` the global batch's. Returns the
+        loss's aux dict as device tensors, the global batch's means."""
         x, y = self.augment(x, y, aug_params)
         loss, aux = self.forward_loss(x, y, z_eps)
         self.backward(loss)
-        self.update(loss)
-        return {k: v.detach() for k, v in aux.items()}
+        aux = mean_over_processes(self.mesh, aux)
+        self._update(aux["loss"])
+        return aux
 
     # the train loop
 
@@ -258,7 +341,10 @@ class Trainer:
         ``cfg.iterations``) steps in all, from the state's step, so a
         resumed trainer goes on toward the same total. Validates every
         ``validation_frequency`` iterations and logs every
-        ``logging_frequency``; logging is the loop's only host sync. Returns
+        ``logging_frequency``; logging is the loop's only host sync. Every
+        process reads the global batch and steps on its rows; process 0
+        alone validates and logs, the others go on to the next step's first
+        collective and wait there; all meet at a barrier at the end. Returns
         the last step's aux dict (device tensors), or None if there was
         nothing to do."""
         cfg = self.cfg
@@ -271,7 +357,10 @@ class Trainer:
         last_aux = None
         for self.iteration in range(start + 1, n_iter + 1):
             x, y = data.train.next_batch(cfg.batch_size)
-            last_aux = self.train_step(self._to_device(x), self._to_device(y))
+            last_aux = self.train_step(self._to_device(shard_batch(self.mesh, x)),
+                                       self._to_device(shard_batch(self.mesh, y)))
+            if not self.is_main:
+                continue
             if validate and self.iteration % cfg.validation_frequency == 0:
                 self.validate(data)
             if self.iteration % cfg.logging_frequency == 0:
@@ -279,6 +368,7 @@ class Trainer:
                 values["lr"] = float(self.state.sched.lr)
                 log.info("iteration %d loss %.5f", self.iteration, values["loss"])
                 self.training_writer.scalars(self.iteration, values)
+        barrier("train")
         log.info("finished training.")
         return last_aux
 
@@ -709,7 +799,10 @@ class Trainer:
 
     def save_model(self, savename: str) -> None:
         """The full-state checkpoint ``savename`` in the log directory, and
-        ``best_metrics.json``."""
+        ``best_metrics.json``; written by process 0 alone (every process
+        holds the same state)."""
+        if not self.is_main:
+            return
         save_checkpoint(os.path.join(self.log_dir, savename), self.state)
         with open(os.path.join(self.log_dir, "best_metrics.json"), "w") as f:
             json.dump({"iteration": self.iteration, **self.best}, f)
@@ -718,7 +811,10 @@ class Trainer:
         """Full-state resume from ``savename``: the train state, the best
         metrics so far (so the first validation after it cannot overwrite
         an earlier best_* checkpoint), and ``iteration`` realigned on the
-        state's step, so ``train`` goes on toward the same total."""
+        state's step, so ``train`` goes on toward the same total. Every
+        process reads the same file, after a barrier that lets process 0
+        finish writing it."""
+        barrier("restore")
         restore_checkpoint(os.path.join(self.log_dir, savename), self.state)
         best_path = os.path.join(self.log_dir, "best_metrics.json")
         if os.path.exists(best_path):
@@ -731,8 +827,9 @@ class Trainer:
 
     def close(self) -> None:
         """Closes the train and validation metrics streams."""
-        self.training_writer.close()
-        self.validation_writer.close()
+        for writer in (self.training_writer, self.validation_writer):
+            if writer is not None:
+                writer.close()
 
     def _log_memory(self) -> Optional[int]:
         """Peak device memory in bytes (None on the CPU), as the reference
