@@ -205,7 +205,28 @@ Phases, each printing its own lines:
    process's ms a step for information; (c) ``Trainer.train`` (20 bf16
    ``unet`` steps, a validation every 10) on the two processes: process 0
    alone validates and writes the checkpoints and metrics (process 1 no
-   file), the final parameters against one process's run.
+   file), the final parameters against one process's run;
+13. the CLIs on the card (``unet_zoo_tpu_torch.training.cli``): first
+   which of h5py, sklearn, PIL, cv2 and tensorboardX import here; (a)
+   ``train_main`` then ``eval_main --checkpoint last --num-repeats 1
+   --num-samples 4 --generate-images`` in this process for the registered
+   ``unet`` (f32), a ``unet`` file in bf16, ``prob_unet``, ``phiseg_7_5_12``,
+   ``phiseg_uzh_7_5_192`` and ``phiseg_brats`` (experiment files of a few
+   iterations with one validation), from a synthetic LIDC pickle whose cache
+   the CLI builds and synthetic UZH and BraTS caches where ``from_config``
+   looks (npy directories where h5py does not import): the conv-chain
+   launches of each call against the count its steps and images make, the
+   provenance, checkpoints, the test sweep's npz with its schema, and the
+   PNGs (10 images x (image, ground truth, 10 samples)) decoding to the
+   model's shape, each call's seconds; and one ``python -m
+   unet_zoo_tpu_torch.train`` in a subprocess; (b) ``loader="native"``: the
+   g++ build, ``next_batch(12)`` on the native and the h5py-loader providers
+   (host ms, bit-identical batches) and 3 ``unet`` steps through each loader,
+   the losses bit-identical (cuDNN deterministic); (c)
+   ``augment_on="host"``: 3 steps where cv2 imports, else the Trainer's
+   ImportError; (d) ``eval_image`` of one ``phiseg_uzh_7_5_512`` image at 100
+   samples decoded in chunks (ms, peak MiB), and at 16 samples the chunked
+   evaluation bit for bit against the whole fold.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -219,6 +240,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -508,6 +530,29 @@ DP_PARAM_ATOL_LR, ROUNDING_OF_MAX, ROUNDING_FLIP_LR, FLIP_SHARE = 2e-2, 1e-3, 2.
 # away where both trained on the first half of every batch, 0.52 where each
 # stepped on its own gradient
 DP_TRAIN_REL_MOVE = 0.25
+
+# phase 13: the CLIs on the card
+CLI_MODULES = ("h5py", "sklearn", "PIL", "cv2", "tensorboardX")
+CLI_LIDC_CASES = (40, 10)  # the synthetic LIDC pickle: cases, subjects (24 / 8 / 8 images by the 64/16/20 split)
+CLI_UZH_SPLITS = (12, 2, 2)  # synthetic UZH slices at 192x192: train (the batch) / validation / test
+CLI_BRATS_SPLITS = (2, 1)  # synthetic BraTS volumes at 128^3: train / validation (test empty, as real BraTS)
+CLI_VALIDATION_IMAGES = 2
+CLI_TEST_SAMPLES = 4  # eval --num-samples
+GENERATED = (10, 10)  # generate_images: images, samples each (the method's defaults, as the JAX CLI)
+# (run, registered experiment, changes, iterations (one validation at the last), launches a step, launches
+# an evaluated image, launches a generated image); the conv chain runs in the U-Net and ProbUNet's trunk
+CLI_RUNS = (
+    ("unet", "unet", {}, 2, 21, 21, 21),
+    ("unet_bf16", "unet", {"dtype": "bfloat16", "experiment_name": "Unet_bf16"}, 2, 21, 21, 21),
+    # an early ProbUNet validation's KL is NaN (phase 9 (g)): validated after 4 steps, as the harness does
+    ("prob_unet", "prob_unet", {}, 4, 39, 78, 39),
+    ("phiseg_7_5_12", "phiseg_7_5_12", {}, 2, 0, 0, 0),
+    ("phiseg_uzh_7_5_192", "phiseg_uzh_7_5_192", {}, 2, 0, 0, 0),
+    ("phiseg_brats", "phiseg_brats", {}, 2, 0, 0, 0),
+)
+NATIVE_STEPS = 3  # (b): steps of the native-loader and the h5py-loader run, bit-identical
+NATIVE_TIMED_BATCHES = 20  # (b): next_batch(12) calls timed a provider
+CHUNK_SAMPLES = (100, 16)  # (d): the fitting fold, and the fold compared whole and chunked
 
 
 def log(msg: str) -> None:
@@ -2990,6 +3035,348 @@ def dp_phase(conv_chain, dev, card: str, log_root: str) -> dict:
     return {"world1": world1, "ranks": ranks}
 
 
+def cli_file(workdir: str, run: str, name: str, changes: dict, iterations: int) -> str:
+    """An experiment file taking the registered ``name`` with a validation at
+    ``iterations`` on CLI_VALIDATION_IMAGES images and ``changes``."""
+    path = os.path.join(workdir, f"{run}.py")
+    changes = dict(validation_frequency=iterations, num_validation_images=CLI_VALIDATION_IMAGES, logging_frequency=1,
+                   **changes)
+    with open(path, "w") as f:
+        f.write("import dataclasses\n\nfrom unet_zoo_tpu_torch.experiments import get_experiment\n\n"
+                f"config = dataclasses.replace(get_experiment({name!r}), **{changes!r})\n")
+    return path
+
+
+def check_run_files(run: str, cfg, log_dir: str, n_eval: int) -> dict:
+    """The files of a train and an eval --generate-images run: the
+    provenance, the checkpoints, the test sweep's npz with its schema and
+    finite values, and the PNGs (GENERATED images x (image, ground truth,
+    samples)), each decoding to the model's (H, W)."""
+    from unet_zoo_tpu_torch.utils.png import read_png
+
+    files = sorted(os.listdir(log_dir))
+    needed = ["experiment.json", f"{run}.py", "last", "validation_ckpt", "best_metrics.json", "metrics_train.jsonl",
+              "metrics_validation.jsonl", "run.log", "samples"]
+    check(all(f in files for f in needed) and any(f.startswith("best_") and f != "best_metrics.json" for f in files),
+          f"{run}: files {files}")
+    with open(os.path.join(log_dir, "experiment.json")) as f:
+        check(json.load(f)["experiment_name"] == cfg.experiment_name, f"{run}: experiment.json")
+    brats = cfg.is_3d
+    with np.load(os.path.join(log_dir, "brats_test_results.npz" if brats else "test_results.npz")) as f:
+        got = {k: f[k] for k in f.files}
+    if brats:
+        check({k: v.shape for k, v in got.items()} == {k: (1, n_eval, 3) for k in ("dice", "sensitivity",
+                                                                                   "specificity", "hd95")},
+              f"{run}: brats_test_results {[(k, v.shape) for k, v in got.items()]}")
+    else:
+        check({k: v.shape for k, v in got.items()} == {"ged": (1, n_eval), "ncc": (1, n_eval),
+                                                       "dice": (1, n_eval, cfg.n_classes)},
+              f"{run}: test_results {[(k, v.shape) for k, v in got.items()]}")
+        check(np.isfinite(got["ged"]).all(), f"{run}: GED {got['ged']}")
+    check(np.isfinite(got["dice"]).all() and ((got["dice"] >= 0) & (got["dice"] <= 1)).all(),
+          f"{run}: Dice {got['dice']}")
+    pngs = sorted(os.listdir(os.path.join(log_dir, "samples")))
+    n_img = min(n_eval, GENERATED[0])
+    want = {f"{k}_{i}.png" for i in range(n_img) for k in ("img", "gt")}
+    want |= {f"sample_{i}_{s}.png" for i in range(n_img) for s in range(GENERATED[1])}
+    check(set(pngs) == want and len(pngs) == n_img * (2 + GENERATED[1]), f"{run}: {len(pngs)} PNGs {pngs[:6]}")
+    shapes = {read_png(os.path.join(log_dir, "samples", p)).shape for p in pngs}
+    check(shapes == {tuple(cfg.image_size[-3:-1] if brats else cfg.image_size)}, f"{run}: PNG shapes {shapes}")
+    return {"pngs": len(pngs), "results": {k: float(np.nanmean(v)) for k, v in got.items()}}
+
+
+def cli_runs(conv_chain, dev, card: str, workdir: str, sys_json: str, log_root: str) -> dict:
+    """(a): ``train`` then ``eval --checkpoint last --num-repeats 1
+    --num-samples 4 --generate-images`` of each CLI_RUNS experiment in this
+    process (the launch counter read around each call), and one ``python -m
+    unet_zoo_tpu_torch.train`` in a subprocess."""
+    import logging
+
+    import torch.distributed as dist
+
+    from unet_zoo_tpu_torch.data import data_switch, lidc
+    from unet_zoo_tpu_torch.experiments import SystemConfig, load_experiment
+    from unet_zoo_tpu_torch.training.cli import eval_main, train_main
+
+    root = logging.getLogger().handlers[:]
+    prepare, cache_s = lidc.prepare_data, []
+
+    def timed_prepare(*a, **kw):
+        t0 = time.perf_counter()
+        out = prepare(*a, **kw)
+        cache_s.append(time.perf_counter() - t0)
+        return out
+
+    with open(sys_json) as f:
+        sys_cfg = SystemConfig(**json.load(f))
+    common = ["--sys-config", sys_json, "--log-root", log_root]
+    result = {}
+    for run, name, changes, iterations, per_step, per_image, per_generated in CLI_RUNS:
+        path = cli_file(workdir, run, name, changes, iterations)
+        cfg = load_experiment(path)
+        torch.cuda.synchronize()
+        conv_chain.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(lidc, "prepare_data", timed_prepare):
+            check(train_main([path, *common, "--iterations", str(iterations)]) == 0, f"{run}: train exit")
+        torch.cuda.synchronize()
+        train_s, train_launches = time.perf_counter() - t0, conv_chain.launches
+        built = cache_s.pop() if cache_s else 0.0
+        conv_chain.launches = 0
+        t0 = time.perf_counter()
+        check(eval_main([path, *common, "--checkpoint", "last", "--num-repeats", "1", "--num-samples",
+                         str(CLI_TEST_SAMPLES), "--generate-images"]) == 0, f"{run}: eval exit")
+        torch.cuda.synchronize()
+        eval_s, eval_launches = time.perf_counter() - t0, conv_chain.launches
+        check(logging.getLogger().handlers == root and not dist.is_initialized(),
+              f"{run}: the CLI left log handlers or a process group behind")
+        data = data_switch(cfg.data_loader).from_config(sys_cfg, cfg)  # the split sizes the CLI saw
+        if cfg.is_3d:
+            n_val = data.num_examples("validation")
+            n_eval = data.num_examples("test") or n_val  # the evaluation takes validation where test is empty
+        else:
+            n_val, n_eval = data.validation.images.shape[0], data.test.images.shape[0]
+        del data
+        want_train = iterations * per_step + min(CLI_VALIDATION_IMAGES, n_val) * per_image
+        want_eval = n_eval * per_image + min(n_eval, GENERATED[0]) * per_generated
+        check((train_launches, eval_launches) == (want_train, want_eval),
+              f"{run}: conv-chain launches train {train_launches} eval {eval_launches}, expected {want_train} "
+              f"{want_eval}")
+        log_dir = os.path.join(log_root, cfg.log_dir_name, cfg.experiment_name)
+        files = check_run_files(run, cfg, log_dir, n_eval)
+        with open(os.path.join(log_dir, "metrics_train.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        check(len(losses) == iterations and all(math.isfinite(v) for v in losses), f"{run}: losses {losses}")
+        route = {"float32": "conv3x3_f32_3xtf32_wgmma", "bfloat16": "conv3x3_bf16_wgmma"}[cfg.dtype] \
+            if per_step else "none (BatchNorm or reversible sequences)"
+        log(f"[cli] {run} ({name}, {cfg.dtype}, {cfg.effective_reversible_mode}, bs{cfg.batch_size}, "
+            f"{'x'.join(map(str, cfg.image_size))}): train {iterations} steps + 1 validation {train_s:.2f} s "
+            f"(of it the cache build {built:.2f} s), eval (test 1 repeat x {n_eval} x {CLI_TEST_SAMPLES} "
+            f"samples + {files['pngs']} PNGs) {eval_s:.2f} s; conv-chain launches of {route}: train "
+            f"{train_launches}, eval {eval_launches} (expected {want_train}, {want_eval}); losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)}; test means {json.dumps(files['results'])} | card: {card}")
+        result[run] = {"train_s": train_s - built, "cache_s": built, "eval_s": eval_s, "train_launches": train_launches,
+                       "eval_launches": eval_launches, "route": route, "pngs": files["pngs"]}
+        torch.cuda.empty_cache()
+
+    # the module entry point a user runs, in its own process
+    path = os.path.join(workdir, "unet.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "unet_zoo_tpu_torch.train", path, *common[:2], "--log-root",
+                           os.path.join(workdir, "subprocess"), "--iterations", "2", "--no-validate"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m unet_zoo_tpu_torch.train exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    check(os.path.exists(os.path.join(workdir, "subprocess", "lidc", "Unet", "last")), "the subprocess wrote no 'last'")
+    log(f"[cli] python -m unet_zoo_tpu_torch.train unet --iterations 2 --no-validate in a subprocess: exit 0, "
+        f"{sub_s:.2f} s with the interpreter's start | card: {card}")
+    result["subprocess_s"] = sub_s
+    return result
+
+
+def native_loader(conv_chain, dev, card: str, workdir: str, sys_json: str, log_root: str) -> dict:
+    """(b): the g++ build, ``next_batch(12)`` on the native and the
+    h5py-loader providers (bit-identical), and NATIVE_STEPS steps of a
+    native-loader ``unet`` run against the h5py-loader run, losses bit for
+    bit (cuDNN deterministic, resize as matrix products)."""
+    from unet_zoo_tpu_torch.data import data_switch
+    from unet_zoo_tpu_torch.experiments import SystemConfig, load_experiment
+    from unet_zoo_tpu_torch.native import NativeBatchProvider, store
+    from unet_zoo_tpu_torch.training.cli import train_main
+
+    existed = store.library_path().exists()
+    t0 = time.perf_counter()
+    check(store.native_available(), "the native batch store did not build")
+    build_s = time.perf_counter() - t0
+    log(f"[native] g++ build and load of {os.path.relpath(store.library_path(), REPO)}: {build_s:.2f} s "
+        f"({'already built' if existed else 'built now'})")
+    with open(sys_json) as f:
+        sys_cfg = SystemConfig(**json.load(f))
+    paths = {kind: cli_file(workdir, f"unet_{kind}", "unet", {"experiment_name": f"Unet_{kind}", "loader": kind},
+                            NATIVE_STEPS) for kind in ("native", "h5py")}
+    cfgs = {kind: load_experiment(p) for kind, p in paths.items()}
+    providers = {kind: data_switch("lidc").from_config(sys_cfg, cfg).train for kind, cfg in cfgs.items()}
+    check(isinstance(providers["native"], NativeBatchProvider), "loader='native' gave no native provider")
+    batch = cfgs["native"].batch_size
+    for i in range(NATIVE_STEPS):
+        a, b = providers["native"].next_batch(batch), providers["h5py"].next_batch(batch)
+        check(all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b)), f"batch {i} differs")
+    batch_ms = {}
+    for kind, p in providers.items():
+        t0 = time.perf_counter()
+        for _ in range(NATIVE_TIMED_BATCHES):
+            p.next_batch(batch)
+        batch_ms[kind] = (time.perf_counter() - t0) / NATIVE_TIMED_BATCHES * 1e3
+    providers["native"].close()
+    log(f"[native] next_batch({batch}) at {cfgs['native'].image_size[0]}x{cfgs['native'].image_size[1]}, 4 "
+        f"graders: {NATIVE_STEPS} batches bit-identical between the native and the h5py-loader providers at one seed; "
+        f"host ms a batch, mean of {NATIVE_TIMED_BATCHES}: native {batch_ms['native']:.3f}, h5py loader "
+        f"{batch_ms['h5py']:.3f}")
+    losses, launches = {}, {}
+    with dp_deterministic():
+        for kind, path in paths.items():
+            conv_chain.launches = 0
+            check(train_main([path, "--sys-config", sys_json, "--log-root", log_root, "--iterations",
+                              str(NATIVE_STEPS), "--no-validate"]) == 0, f"{kind}: train exit")
+            launches[kind] = conv_chain.launches
+            with open(os.path.join(log_root, "lidc", f"Unet_{kind}", "metrics_train.jsonl")) as f:
+                losses[kind] = [json.loads(line)["loss"] for line in f]
+    expected = NATIVE_STEPS * len(BLOCKS) * STAGES_PER_BLOCK
+    check(launches == {"native": expected, "h5py": expected}, f"native loader runs: launches {launches}")
+    check(len(losses["native"]) == NATIVE_STEPS and losses["native"] == losses["h5py"],
+          f"native loader losses {losses['native']} != h5py loader's {losses['h5py']}")
+    log(f"[native] train unet f32 bs{batch} loader='native' vs loader='h5py', {NATIVE_STEPS} steps from one seed "
+        f"(cuDNN deterministic): losses bit-identical {losses['native']}; {launches['native']} conv-chain launches "
+        f"(expected {expected}) | card: {card}")
+    return {"build_s": build_s, "built_now": not existed, "batch_ms": batch_ms, "launches": launches["native"],
+            "losses": losses["native"]}
+
+
+def host_augmentation(conv_chain, dev, card: str, log_root: str) -> dict:
+    """(c): ``augment_on="host"``: 3 steps where cv2 imports; where it does
+    not, the Trainer's ImportError (never device augmentation)."""
+    from unet_zoo_tpu_torch.data import LIDCData, synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    cfg = dataclasses.replace(get_experiment("unet"), augment_on="host")
+    if importlib.util.find_spec("cv2") is None:
+        try:
+            Trainer(cfg, dev, seed=0, log_dir=os.path.join(log_root, "host_aug"))
+        except ImportError as e:
+            check("cv2" in str(e), f"host augmentation raised {e!r}")
+            log(f"[host-aug] cv2 does not import on this machine: Trainer(augment_on='host') raised ImportError "
+                f"({e}); host augmentation was not run on the card")
+            return {"ran": False}
+        raise AssertionError("Trainer(augment_on='host') built without cv2")
+    trainer = Trainer(cfg, dev, seed=0, log_dir=os.path.join(log_root, "host_aug"))
+    conv_chain.launches = 0
+    t0 = time.perf_counter()
+    aux = trainer.train(LIDCData(synthetic.lidc_splits(HARNESS_SPLITS, IMAGE, seed=0), seed=0), iterations=3,
+                        validate=False)
+    took = time.perf_counter() - t0
+    expected = 3 * len(BLOCKS) * STAGES_PER_BLOCK
+    check(math.isfinite(aux["loss"].item()) and conv_chain.launches == expected,
+          f"host augmentation: loss {aux['loss'].item()}, launches {conv_chain.launches}")
+    trainer.close()
+    log(f"[host-aug] unet f32 bs{cfg.batch_size} with the cv2 chain on the host: 3 steps in {took:.2f} s, "
+        f"{expected} conv-chain launches, loss {aux['loss'].item():.4f} | card: {card}")
+    return {"ran": True, "s": took}
+
+
+def chunked_sampling(dev, card: str, log_root: str) -> dict:
+    """(d): ``eval_image`` of one ``phiseg_uzh_7_5_512`` image at 100 samples
+    (decoded ``sample_chunk`` at a time: ms, peak), and at 16 samples the
+    chunked evaluation and its logits against the whole fold's (cuDNN
+    deterministic on both)."""
+    from unet_zoo_tpu_torch.data import synthetic
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+    from unet_zoo_tpu_torch.training import trainer as trainer_module
+
+    cfg = get_experiment(UZH_EXPERIMENT)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=os.path.join(log_root, "chunked"))
+    arrays = synthetic.uzh_arrays((1, 1, 1), cfg.image_size[0], seed=0)
+    x = torch.from_numpy(arrays["images_test"][:1])[..., None].to(dev)
+    labels = torch.from_numpy(np.moveaxis(arrays["masks_test"][:1], -1, 1).copy()).long().to(dev)
+    y_all, y_chosen = labels[0], labels[0, :1]
+    n_big, n_cmp = CHUNK_SAMPLES
+    result = {"chunk": {n: trainer.sample_chunk(x, n) for n in CHUNK_SAMPLES}}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = trainer.eval_image(x, y_all, y_chosen, n_big)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    ms = cuda_ms(lambda: trainer.eval_image(x, y_all, y_chosen, n_big), 1)
+    check(math.isfinite(out["ged"].item()) and -1 <= out["ncc"].item() <= 1 and
+          bool(((out["dice"] >= 0) & (out["dice"] <= 1)).all()), f"100-sample evaluation {out}")
+    log(f"[chunked] eval_image of one {cfg.image_size[0]}x{cfg.image_size[1]} {UZH_EXPERIMENT} image (f32) at "
+        f"{n_big} samples, {result['chunk'][n_big]} decoded at a time: {ms:.1f} ms, peak {peak:.1f} MiB above "
+        f"the state; GED {out['ged'].item():.4f} NCC {out['ncc'].item():.4f} | card: {card}")
+    with dp_deterministic():
+        chunked = trainer.eval_image(x, y_all, y_chosen, n_cmp)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mock.patch.object(trainer_module, "EVAL_SAMPLE_PIXELS", 1 << 62):
+            whole = trainer.eval_image(x, y_all, y_chosen, n_cmp)
+        torch.cuda.synchronize()
+        whole_peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+        gen = lambda: torch.Generator(device=dev).manual_seed(5)  # noqa: E731
+        with torch.inference_mode():
+            logits_chunked = trainer.state.model.sample(x, n_cmp, generator=gen(), chunk=result["chunk"][n_cmp])
+            logits_whole = trainer.state.model.sample(x, n_cmp, generator=gen())
+        logit_err = (logits_chunked - logits_whole).abs().max().item()
+        logit_tol = F32_RTOL * logits_whole.abs().max().item()
+    # cuDNN takes other float32 algorithms for a batch of 1 than of 16, so the
+    # logits round apart (the CPU test holds them bit for bit): the logits
+    # within F32_RTOL, NCC within NCC_ATOL, every other result equal
+    ncc_err = (whole["ncc"] - chunked["ncc"]).abs().item()
+    differ = [k for k in whole if k != "ncc" and not torch.equal(whole[k], chunked[k])]
+    check(result["chunk"][n_cmp] is not None and not differ and ncc_err <= NCC_ATOL and logit_err <= logit_tol,
+          f"chunked vs whole fold at {n_cmp} samples: {differ} differ, NCC by {ncc_err:.3e}, logits by "
+          f"{logit_err:.3e} (tol {logit_tol:.3e}; chunk {result['chunk'][n_cmp]})")
+    log(f"[chunked] {n_cmp} samples decoded {result['chunk'][n_cmp]} at a time against the whole fold (peak "
+        f"{whole_peak:.1f} MiB): logits max|diff| {logit_err:.3e} (tol {logit_tol:.3e}, {'bit-identical' if logit_err == 0 else 'cuDNN rounds a batch of 1 otherwise than 16'}); "
+        f"GED, Dice, loss terms, mean prediction and first sample equal; NCC {ncc_err:.3e} apart (tol {NCC_ATOL}) "
+        f"| card: {card}")
+    result.update(logits_max_abs_diff=logit_err, ncc_diff=ncc_err)
+    del trainer
+    torch.cuda.empty_cache()
+    result.update(ms=ms, peak_mib=peak, whole_16_peak_mib=whole_peak)
+    return result
+
+
+def cli_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 13: the CLIs on the card, the native loader, host augmentation
+    and chunked sampling."""
+    from unet_zoo_tpu_torch.data import brats, synthetic, uzh
+    from unet_zoo_tpu_torch.data.cache import find_cache
+    from unet_zoo_tpu_torch.experiments import get_experiment
+
+    t0 = time.perf_counter()
+    present = {m: importlib.util.find_spec(m) is not None for m in CLI_MODULES}
+    log(f"[cli] modules on this machine (importlib.util.find_spec): "
+        f"{', '.join(f'{m} {present[m]}' for m in CLI_MODULES)}")
+    workdir = os.path.join(log_root, "cli")
+    os.makedirs(workdir)
+    preproc, preproc_uzh = os.path.join(workdir, "preproc"), os.path.join(workdir, "preproc_uzh")
+    sys_json = os.path.join(workdir, "config.json")
+    with open(sys_json, "w") as f:
+        json.dump({"data_root": os.path.join(workdir, "data_lidc.pickle"), "preproc_folder": preproc,
+                   "uzh_preproc_folder": preproc_uzh, "brats_root": os.path.join(workdir, "brats_raw")}, f)
+    synthetic.make_lidc_pickle(os.path.join(workdir, "data_lidc.pickle"), num_cases=CLI_LIDC_CASES[0],
+                               num_subjects=CLI_LIDC_CASES[1], size=IMAGE, seed=0)
+    caches, cache_s = {}, {}
+    uzh_cfg, brats_cfg = get_experiment("phiseg_uzh_7_5_192"), get_experiment("phiseg_brats")
+    for key, make, path in (
+            ("uzh_prostate", lambda p: synthetic.make_uzh_cache(p, CLI_UZH_SPLITS, uzh_cfg.image_size[0], 3, seed=0),
+             os.path.join(preproc_uzh, uzh.cache_name(uzh_cfg.image_size, uzh_cfg.target_resolution))),
+            ("brats", lambda p: synthetic.make_brats_cache(p, CLI_BRATS_SPLITS, brats_cfg.image_size, seed=0),
+             os.path.join(preproc, brats.cache_name(brats_cfg.image_size)))):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        t1 = time.perf_counter()
+        caches[key] = make(path)
+        cache_s[key] = time.perf_counter() - t1
+    runs_root = os.path.join(workdir, "logs")
+    runs = cli_runs(conv_chain, dev, card, workdir, sys_json, runs_root)
+    for key in ("uzh_prostate", "brats"):
+        runs[{"uzh_prostate": "phiseg_uzh_7_5_192", "brats": "phiseg_brats"}[key]]["cache_s"] = cache_s[key]
+    caches["lidc"] = find_cache(os.path.join(preproc, "data_lidc.hdf5"))
+    if not present["h5py"]:
+        check(all(os.path.isdir(c) and c.endswith("_npy") for c in caches.values()), f"caches {caches}")
+    log(f"[cli] caches ({'HDF5' if present['h5py'] else 'npy directories: h5py does not import'}): "
+        f"{', '.join(f'{k} {os.path.relpath(v, workdir)}' for k, v in caches.items())}; UZH and BraTS written in "
+        f"{cache_s['uzh_prostate']:.2f} s and {cache_s['brats']:.2f} s")
+    native = native_loader(conv_chain, dev, card, workdir, sys_json, runs_root)
+    host = host_augmentation(conv_chain, dev, card, workdir)
+    chunked = chunked_sampling(dev, card, workdir)
+    took = time.perf_counter() - t0
+    log(f"[cli] phase 13 took {took:.1f} s | card: {card}")
+    return {"modules": present, "runs": runs, "native": native, "host_augmentation": host, "chunked": chunked,
+            "seconds": took}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -3149,8 +3536,13 @@ def main() -> int:
 
         # 12. data parallelism
         dp = dp_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
-    log(f"[env] phases 1-12 took {time.perf_counter() - started:.1f} s")
+        # 13. the CLIs on the card, the native loader, host augmentation, chunked sampling
+        cli = cli_phase(conv_chain, dev, card, log_root)
+
+    log(f"[env] phases 1-13 took {time.perf_counter() - started:.1f} s")
+    runs = cli["runs"]
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]
     log(json.dumps({"kernels": [{
@@ -3218,6 +3610,10 @@ def main() -> int:
         "dp_world1_plain_step_ms": {k: v["plain_ms"] for k, v in dp["world1"].items()},
         "dp_two_process_f32_step_launches": [r["launches"] for r in dp["ranks"]["unet"]],
         "dp_two_process_step_ms": {k: [r["ms"] for r in dp["ranks"][k]] for k in ("unet", PHISEG_EXPERIMENT)},
+        # phase 13: launches of the bf16 unet file's train and eval --generate-images CLI calls
+        "cli_launches": {k: {"train": runs[k]["train_launches"], "eval": runs[k]["eval_launches"]}
+                         for k in ("unet_bf16",)},
+        "cli_phase_s": cli["seconds"],
     }, {
         "name": "fused_conv_chain_f32",
         "kernel": F32_ROUTE,
@@ -3241,6 +3637,17 @@ def main() -> int:
         "prob_unet_step": prob["f32"],
         "unet_step_bs12": prob["f32_unet"],
         "ptxas": {k: v for k, v in ptxas.items() if k.startswith(F32_ROUTE)},
+        # phase 13: launches of the registered (f32) unet and prob_unet train and eval --generate-images CLI
+        # calls, and of the native-loader unet run's 3 steps
+        "cli_launches": {k: {"train": runs[k]["train_launches"], "eval": runs[k]["eval_launches"]}
+                         for k in ("unet", "prob_unet")},
+        "native_loader_launches": cli["native"]["launches"],
+        "cli_runs_s": {k: {f: v[f] for f in ("cache_s", "train_s", "eval_s")} for k, v in runs.items()
+                       if isinstance(v, dict)},
+        "native_batch_ms": cli["native"]["batch_ms"],
+        "native_build_s": cli["native"]["build_s"],
+        "chunked_eval100_ms": cli["chunked"]["ms"],
+        "chunked_eval100_peak_mib": cli["chunked"]["peak_mib"],
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

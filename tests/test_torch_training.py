@@ -373,7 +373,7 @@ def test_registry_names_every_jax_experiment():
     ({"use_reversible": True, "model": "prob_unet", "image_size": (32, 32, 32)}, NotImplementedError),
     ({"reversible_mode": "remat", "image_size": (32, 32, 32)}, NotImplementedError),
     ({"model": "phiseg", "latent_levels": 5}, ValueError),
-    ({"augment_on": "host"}, NotImplementedError),
+    ({"loader": "native", "resize_to": (32, 32)}, ValueError),
     ({"augment_on": "gpu"}, ValueError),
     ({"loader": "mmap"}, ValueError),
     ({"reversible_mode": "revnet"}, ValueError),

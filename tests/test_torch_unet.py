@@ -159,7 +159,7 @@ def test_same_seed_same_weights():
 
 def test_port_never_imports_jax():
     # a subprocess: this test process has jax imported by tests/conftest.py.
-    # Nor h5py or scikit-learn at import: the card's machine has neither.
+    # Nor h5py, scikit-learn, OpenCV or PIL at import: the card's machine has none of them.
     code = ("import sys, unet_zoo_tpu_torch, unet_zoo_tpu_torch.models.registry, "
             "unet_zoo_tpu_torch.bridge, unet_zoo_tpu_torch.ops.pallas._build, "
             "unet_zoo_tpu_torch.data, unet_zoo_tpu_torch.data.augment, "
@@ -176,9 +176,11 @@ def test_port_never_imports_jax():
             "unet_zoo_tpu_torch.parallel.space, "
             "unet_zoo_tpu_torch.metrics, unet_zoo_tpu_torch.metrics.dice, unet_zoo_tpu_torch.metrics.ged, "
             "unet_zoo_tpu_torch.metrics.ncc, unet_zoo_tpu_torch.utils, unet_zoo_tpu_torch.utils.summary, "
-            "unet_zoo_tpu_torch.train, unet_zoo_tpu_torch.eval; "
+            "unet_zoo_tpu_torch.train, unet_zoo_tpu_torch.eval, unet_zoo_tpu_torch.data.cache, "
+            "unet_zoo_tpu_torch.data.augment_host, unet_zoo_tpu_torch.native, unet_zoo_tpu_torch.native.store, "
+            "unet_zoo_tpu_torch.utils.profiling, unet_zoo_tpu_torch.utils.png; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'triton', 'unet_zoo_tpu', 'h5py', 'sklearn')]; "
+            "('jax', 'flax', 'triton', 'unet_zoo_tpu', 'h5py', 'sklearn', 'cv2', 'PIL')]; "
             "assert not bad, bad")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
                           cwd=Path(__file__).resolve().parents[1])

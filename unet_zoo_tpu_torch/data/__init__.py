@@ -1,6 +1,8 @@
 """Data pipeline of the PyTorch port: host-side batch providers over the
-LIDC, UZH prostate and BraTS caches (``h5py`` imported only where HDF5 is
-read or written) and the on-device 2D and 3D augmentation."""
+LIDC, UZH prostate and BraTS caches (``cache``: HDF5 where ``h5py``
+imports, else a directory of ``.npy`` files), the on-device 2D and 3D
+augmentation, and the host (cv2) augmentation (``augment_host``, cv2
+imported where it runs)."""
 
 from unet_zoo_tpu_torch.data import synthetic
 from unet_zoo_tpu_torch.data.augment import (

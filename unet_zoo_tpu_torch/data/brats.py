@@ -13,9 +13,10 @@ crop offsets, for reassembling a prediction in the original geometry.
 
 Volumes are (D, H, W, C), the model's NDHWC without the batch. ``BratsData``
 reads its splits as ``data["images_train"]`` and so on, so an open HDF5
-file and a dict of arrays with the same schema serve alike: ``h5py`` (which
-the card's host lacks) and ``scipy`` are imported only where a file is
-written or opened or a volume resampled.
+file, an ``NpyCache`` and a dict of arrays with the same schema serve
+alike. The cache is written and read through ``data.cache`` (HDF5 where
+``h5py`` imports, else a directory of ``.npy`` files); ``scipy`` is
+imported only where a volume is resampled.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from unet_zoo_tpu_torch.data.cache import load_or_build, write_cache
 from unet_zoo_tpu_torch.utils.nii import load_nii
 
 log = logging.getLogger(__name__)
@@ -118,11 +120,11 @@ def reassemble_to_original(pred: np.ndarray, original_shape: Tuple[int, int, int
 
 
 def prepare_data(input_folder: str, output_file: str, size: Tuple[int, int, int] = (128, 128, 128),
-                 target_resolution: Tuple[float, float, float] = (1.0, 1.0, 1.0), keep_offsets: bool = False) -> None:
-    """Build the HDF5 cache from raw BraTS folders, one a case holding
-    ``<case>_<modality>.nii.gz`` and ``<case>_seg.nii.gz``."""
-    import h5py
-
+                 target_resolution: Tuple[float, float, float] = (1.0, 1.0, 1.0), keep_offsets: bool = False) -> str:
+    """Build the cache ``output_file`` (HDF5, or its npy directory where
+    ``h5py`` does not import) from raw BraTS folders, one a case holding
+    ``<case>_<modality>.nii.gz`` and ``<case>_seg.nii.gz``; returns the
+    path written."""
     vols = {tt: ([], [], []) for tt in SPLITS}
     offsets = {tt: [] for tt in SPLITS}  # (lo, hi, original shape) a case
     case_dirs = sorted(d for d in glob.glob(os.path.join(input_folder, "*")) if os.path.isdir(d))
@@ -159,32 +161,32 @@ def prepare_data(input_folder: str, output_file: str, size: Tuple[int, int, int]
         vols[tt][1].append(mask if mask is not None else np.zeros(size, np.uint8))
         vols[tt][2].append(pid)
 
-    with h5py.File(output_file, "w") as f:
-        for tt in SPLITS:
-            f.create_dataset(f"images_{tt}", data=np.asarray(vols[tt][0], dtype=np.float32))
-            f.create_dataset(f"masks_{tt}", data=np.asarray(vols[tt][1], dtype=np.uint8))
-            f.create_dataset(f"pids_{tt}", data=np.asarray(vols[tt][2], dtype=np.int64))
-            if keep_offsets:
-                lo_a, hi_a, sh_a = (np.asarray([o[j] for o in offsets[tt]], np.int64).reshape(-1, 3)
-                                    for j in range(3))
-                for j, name in enumerate(("xOffsets", "yOffsets", "zOffsets")):
-                    f.create_dataset(f"{name}_{tt}", data=lo_a[:, j])
-                f.create_dataset(f"cropHi_{tt}", data=hi_a)
-                f.create_dataset(f"origShape_{tt}", data=sh_a)
-    log.info("wrote BraTS cache to %s", output_file)
+    arrays = {}
+    for tt in SPLITS:
+        arrays[f"images_{tt}"] = np.asarray(vols[tt][0], dtype=np.float32)
+        arrays[f"masks_{tt}"] = np.asarray(vols[tt][1], dtype=np.uint8)
+        arrays[f"pids_{tt}"] = np.asarray(vols[tt][2], dtype=np.int64)
+        if keep_offsets:
+            lo_a, hi_a, sh_a = (np.asarray([o[j] for o in offsets[tt]], np.int64).reshape(-1, 3) for j in range(3))
+            for j, name in enumerate(("xOffsets", "yOffsets", "zOffsets")):
+                arrays[f"{name}_{tt}"] = lo_a[:, j]
+            arrays[f"cropHi_{tt}"] = hi_a
+            arrays[f"origShape_{tt}"] = sh_a
+    return write_cache(output_file, arrays)
 
 
 def load_and_maybe_process_data(input_folder: str, preprocessing_folder: str,
                                 size: Tuple[int, int, int] = (128, 128, 128), force_overwrite: bool = False):
-    """The cache ``data_brats18_<size>.hdf5`` in ``preprocessing_folder``,
-    built from ``input_folder`` first if it is missing; an open ``h5py.File``."""
-    import h5py
+    """The cache ``data_brats18_<size>.hdf5`` (or its npy directory) in
+    ``preprocessing_folder``, built from ``input_folder`` first if there is
+    no readable one; an open ``h5py.File`` or ``NpyCache``."""
+    return load_or_build(os.path.join(preprocessing_folder, cache_name(size)),
+                         lambda path: prepare_data(input_folder, path, size=size), force_overwrite)
 
-    os.makedirs(preprocessing_folder, exist_ok=True)
-    path = os.path.join(preprocessing_folder, "data_brats18_%s.hdf5" % "x".join(str(i) for i in size))
-    if not os.path.exists(path) or force_overwrite:
-        prepare_data(input_folder, path, size=size)
-    return h5py.File(path, "r")
+
+def cache_name(size: Tuple[int, int, int]) -> str:
+    """The HDF5 cache's file name at ``size``."""
+    return "data_brats18_%s.hdf5" % "x".join(str(i) for i in size)
 
 
 class _BratsSplit:
@@ -238,8 +240,9 @@ class BratsData:
     def get(self, index: int, mode: str = "train", onehot: bool = True):
         """(image (D, H, W, 4) float32, labels (D, H, W, 3) WT/TC/ET one-hot
         float32 or, without ``onehot``, the raw (D, H, W) labels, pid)."""
-        image = np.asarray(self.data[f"images_{mode}"][index], dtype=np.float32)
-        labels = np.asarray(self.data[f"masks_{mode}"][index])
+        # copies: a memory-mapped cache gives read-only views
+        image = np.array(self.data[f"images_{mode}"][index], dtype=np.float32)
+        labels = np.array(self.data[f"masks_{mode}"][index])
         pid = int(self.data[f"pids_{mode}"][index])
         if onehot:
             labels = to_evaluation_onehot(labels)

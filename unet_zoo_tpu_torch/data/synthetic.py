@@ -7,10 +7,11 @@ dilations of a ground-truth mask, some of them empty, like LIDC's
 4-annotator disagreement. UZH: the same blobs with 6 graders, each case's
 masks carrying one label in [1, num_classes). BraTS: 4-channel noise
 volumes with a nested spherical tumour (labels 1, 2, 4 from the outside
-in) a case. ``h5py`` is imported only by the functions that write or open
-HDF5; ``lidc_splits``, ``uzh_arrays`` and ``brats_arrays`` build the
-caches' arrays in memory, which ``LIDCData``, ``UZHProstateData`` and
-``BratsData`` read as they read an open HDF5 file.
+in) a case. The ``make_*_cache`` functions write through ``data.cache``
+(HDF5 where ``h5py`` imports, else the npy directory beside the HDF5 path);
+``lidc_splits``, ``uzh_arrays`` and ``brats_arrays`` build the caches'
+arrays in memory, which ``LIDCData``, ``UZHProstateData`` and ``BratsData``
+read as they read an open cache.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import pickle
 from typing import Dict, Tuple
 
 import numpy as np
+
+from unet_zoo_tpu_torch.data.cache import find_cache, open_cache, write_cache
 
 SPLITS = ("train", "val", "test")
 
@@ -73,27 +76,19 @@ def lidc_splits(num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 12
 
 def make_lidc_cache(path: str, num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128,
                     seed: int = 0) -> str:
-    """Write ``lidc_splits`` as an HDF5 cache with the LIDC schema."""
-    import h5py
-
-    with h5py.File(path, "w") as f:
-        for tt, arrays in lidc_splits(num_per_split, size, seed).items():
-            g = f.create_group(tt)
-            for name in ("images", "labels", "uids"):
-                g.create_dataset(name, data=arrays[name])
-    return path
+    """Write ``lidc_splits`` as a cache with the LIDC schema at ``path``
+    (``data.cache.write_cache``); returns the path written."""
+    return write_cache(path, lidc_splits(num_per_split, size, seed))
 
 
 def synthetic_lidc(tmpdir: str, annotator_range=None, num_per_split=(24, 8, 8), size: int = 128, seed: int = 0):
-    """``LIDCData`` over a synthetic HDF5 cache in ``tmpdir``, written once."""
-    import h5py
-
+    """``LIDCData`` over a synthetic cache in ``tmpdir``, written once."""
     from unet_zoo_tpu_torch.data.lidc import LIDCData
 
     path = os.path.join(tmpdir, f"synthetic_lidc_{size}.hdf5")
-    if not os.path.exists(path):
+    if find_cache(path) is None:
         make_lidc_cache(path, num_per_split=num_per_split, size=size, seed=seed)
-    return LIDCData(h5py.File(path, "r"), annotator_range=annotator_range, seed=seed)
+    return LIDCData(open_cache(path), annotator_range=annotator_range, seed=seed)
 
 
 def uzh_arrays(num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128, num_classes: int = 3,
@@ -118,13 +113,9 @@ def uzh_arrays(num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128
 
 def make_uzh_cache(path: str, num_per_split: Tuple[int, int, int] = (24, 8, 8), size: int = 128,
                    num_classes: int = 3, seed: int = 0) -> str:
-    """Write ``uzh_arrays`` as an HDF5 cache with the UZH schema."""
-    import h5py
-
-    with h5py.File(path, "w") as f:
-        for name, value in uzh_arrays(num_per_split, size, num_classes, seed).items():
-            f.create_dataset(name, data=value)
-    return path
+    """Write ``uzh_arrays`` as a cache with the UZH schema at ``path``
+    (``data.cache.write_cache``); returns the path written."""
+    return write_cache(path, uzh_arrays(num_per_split, size, num_classes, seed))
 
 
 def brats_arrays(num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, int] = (32, 32, 32), seed: int = 0,
@@ -165,10 +156,6 @@ def brats_arrays(num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, 
 
 def make_brats_cache(path: str, num_per_split: Tuple[int, int] = (4, 2), size: Tuple[int, int, int] = (32, 32, 32),
                      seed: int = 0, keep_offsets: bool = False) -> str:
-    """Write ``brats_arrays`` as an HDF5 cache with the BraTS schema."""
-    import h5py
-
-    with h5py.File(path, "w") as f:
-        for name, value in brats_arrays(num_per_split, size, seed, keep_offsets).items():
-            f.create_dataset(name, data=value)
-    return path
+    """Write ``brats_arrays`` as a cache with the BraTS schema at ``path``
+    (``data.cache.write_cache``); returns the path written."""
+    return write_cache(path, brats_arrays(num_per_split, size, seed, keep_offsets))

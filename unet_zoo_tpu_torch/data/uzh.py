@@ -12,9 +12,10 @@ holds ``images_<split>`` (N, H, W) float32, ``masks_<split>`` (N, H, W, 6)
 uint8 with the annotator axis last, and ``patient_id_<split>`` uint8.
 
 ``UZHProstateData`` reads its splits as ``data["images_train"]`` and so
-on, so an open HDF5 file and a dict of arrays with the same keys serve
-alike. ``h5py`` (which the card's host lacks) is imported only where a
-cache is written or opened, ``scipy.io`` only by ``UZHMatData``.
+on, so an open HDF5 file, an ``NpyCache`` and a dict of arrays with the
+same keys serve alike. The cache is written and read through
+``data.cache`` (HDF5 where ``h5py`` imports, else a directory of ``.npy``
+files); ``scipy.io`` is imported only by ``UZHMatData``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 from scipy.ndimage import zoom
 
 from unet_zoo_tpu_torch.data.batch_provider import BatchProvider
+from unet_zoo_tpu_torch.data.cache import load_or_build, write_cache
 from unet_zoo_tpu_torch.utils.nii import load_nii
 
 log = logging.getLogger(__name__)
@@ -82,14 +84,13 @@ def split_for_patient(patient_id: int) -> str:
 
 
 def prepare_data(input_image_folder: str, input_mask_folder: str, output_file: str, size: Tuple[int, int],
-                 target_resolution: Tuple[float, float]) -> None:
-    """Build the HDF5 cache from case folders ``888<id>/t2_tse_tra.nii.gz``
+                 target_resolution: Tuple[float, float]) -> str:
+    """Build the cache ``output_file`` (HDF5, or its npy directory where
+    ``h5py`` does not import) from case folders ``888<id>/t2_tse_tra.nii.gz``
     in ``input_image_folder`` and one folder an expert (``EXPERT_LIST``) of
-    ``*<id:04d>_*.nii.gz`` masks in ``input_mask_folder``. As in the JAX
-    package, an empty split is written as ``np.asarray([])`` and the patient
-    ids as uint8 (ids above 255 wrap)."""
-    import h5py
-
+    ``*<id:04d>_*.nii.gz`` masks in ``input_mask_folder``; returns the path
+    written. As in the JAX package, an empty split is written as
+    ``np.asarray([])`` and the patient ids as uint8 (ids above 255 wrap)."""
     nx, ny = size
     slices = {tt: ([], []) for tt in SPLITS}
     pids = {tt: [] for tt in SPLITS}
@@ -125,46 +126,44 @@ def prepare_data(input_image_folder: str, input_mask_folder: str, output_file: s
             slices[tt][1].append(ms.astype(np.uint8))
             pids[tt].append(patient_id)
 
-    with h5py.File(output_file, "w") as f:
-        for tt in SPLITS:
-            f.create_dataset(f"images_{tt}", data=np.asarray(slices[tt][0]))
-            f.create_dataset(f"masks_{tt}", data=np.asarray(slices[tt][1]))
-            f.create_dataset(f"patient_id_{tt}", data=np.asarray(pids[tt], dtype=np.uint8))
-    log.info("wrote UZH prostate cache to %s", output_file)
+    arrays = {}
+    for tt in SPLITS:
+        arrays[f"images_{tt}"] = np.asarray(slices[tt][0])
+        arrays[f"masks_{tt}"] = np.asarray(slices[tt][1])
+        arrays[f"patient_id_{tt}"] = np.asarray(pids[tt], dtype=np.uint8)
+    return write_cache(output_file, arrays)
 
 
 def load_and_maybe_process_data(input_image_folder: str, input_mask_folder: str, preprocessing_folder: str,
                                 size: Tuple[int, int], target_resolution: Tuple[float, float],
                                 force_overwrite: bool = False):
-    """The cache ``data_uzh_prostate_<size>_<resolution>.hdf5`` in
-    ``preprocessing_folder``, built first if it is missing; an open
-    ``h5py.File``."""
-    import h5py
+    """The cache ``data_uzh_prostate_<size>_<resolution>.hdf5`` (or its npy
+    directory) in ``preprocessing_folder``, built first if there is no
+    readable one; an open ``h5py.File`` or ``NpyCache``."""
+    return load_or_build(os.path.join(preprocessing_folder, cache_name(size, target_resolution)),
+                         lambda path: prepare_data(input_image_folder, input_mask_folder, path, size,
+                                                   target_resolution), force_overwrite)
 
-    os.makedirs(preprocessing_folder, exist_ok=True)
-    name = "data_uzh_prostate_%s_%s.hdf5" % ("x".join(str(i) for i in size),
-                                              "x".join(str(i) for i in target_resolution))
-    path = os.path.join(preprocessing_folder, name)
-    if not os.path.exists(path) or force_overwrite:
-        prepare_data(input_image_folder, input_mask_folder, path, size, target_resolution)
-    return h5py.File(path, "r")
+
+def cache_name(size: Tuple[int, int], target_resolution: Tuple[float, float]) -> str:
+    """The HDF5 cache's file name at ``size`` and ``target_resolution``."""
+    return "data_uzh_prostate_%s_%s.hdf5" % ("x".join(str(i) for i in size),
+                                             "x".join(str(i) for i in target_resolution))
 
 
 class UZHProstateData:
     """Train, validation and test ``BatchProvider``s over the UZH cache (an
     open HDF5 file or a dict of arrays with its keys), sharing one numpy
     generator seeded with ``seed``. ``annotator_range`` defaults to all 6
-    experts. ``loader="native"`` (the JAX package's C++ store) is not ported
-    and raises."""
+    experts. ``loader="native"`` serves the train split through the C++
+    batch store, as ``LIDCData`` does (needs ``batch_size`` and a cache on
+    disk; no ``resize_to``)."""
 
     NUM_LABELS_PER_SUBJECT = len(EXPERT_LIST)
 
     def __init__(self, data_file, annotator_range: Optional[Sequence[int]] = None, resize_to=None,
-                 seed: Optional[int] = None, loader: str = "h5py"):
-        if loader == "native":
-            raise NotImplementedError("loader='native' (the JAX package's C++ store) is not ported to PyTorch yet; "
-                                      "use loader='h5py'")
-        if loader != "h5py":
+                 seed: Optional[int] = None, loader: str = "h5py", batch_size: Optional[int] = None):
+        if loader not in ("h5py", "native"):
             raise ValueError(f"unknown loader '{loader}'")
         self.data = data_file
         ar = list(annotator_range) if annotator_range is not None else list(range(self.NUM_LABELS_PER_SUBJECT))
@@ -176,7 +175,14 @@ class UZHProstateData:
                                  num_labels_per_subject=self.NUM_LABELS_PER_SUBJECT, annotator_range=ar,
                                  resize_to=resize_to, rng=rng)
 
-        self.train = provider("train")
+        if loader == "native":
+            from unet_zoo_tpu_torch.native.store import native_train_provider
+
+            self.train = native_train_provider(self.data, batch_size, resize_to, images="images_train", labels="masks_train",
+                                               num_labels_per_subject=self.NUM_LABELS_PER_SUBJECT,
+                                               annotator_range=ar, rng=rng)
+        else:
+            self.train = provider("train")
         self.validation = provider("validation")
         self.test = provider("test")
         # the raw arrays, for evaluation against every expert
@@ -195,7 +201,7 @@ class UZHProstateData:
                                         size=tuple(exp_config.image_size[:2]),
                                         target_resolution=tuple(exp_config.target_resolution))
         return cls(f, annotator_range=exp_config.annotator_range, seed=exp_config.data_seed,
-                   loader=exp_config.loader)
+                   loader=exp_config.loader, batch_size=exp_config.batch_size)
 
 
 class UZHMatData:

@@ -5,8 +5,8 @@
 PHiSeg3D train steps, the evaluation, the train loop and the LIDC, UZH and
 BraTS loaders read, with the JAX package's names and defaults.
 ``validate`` raises on what the JAX package rejects and on what the port
-does not run (host augmentation, a 3D U-Net or ProbUNet, whose BN-free conv
-chains have no 3D kernel). ``SystemConfig`` is the JAX package's whole, so that one
+does not run (a 3D U-Net or ProbUNet, whose BN-free conv chains have no 3D
+kernel). ``SystemConfig`` is the JAX package's whole, so that one
 ``config.json`` loads in both packages. ``load_experiment`` takes a registry
 name or a ``.py`` file that defines ``config``.
 """
@@ -72,9 +72,9 @@ class ExperimentConfig:
     target_resolution: Optional[Tuple[float, ...]] = None  # UZH: the slices' pixel size after rescaling
     augmentation_options: Optional[AugmentOptions] = None
     augmentation_options_3d: Optional[Augment3DOptions] = None
-    augment_on: str = "device"  # "host" (the JAX package's cv2 chain) is not ported
+    augment_on: str = "device"  # or "host": the cv2 chain on the host (data/augment_host.py)
     data_seed: Optional[int] = 0
-    loader: str = "h5py"  # "native" (the JAX package's C++ store) is not ported
+    loader: str = "h5py"  # the standard provider over the cache; "native": the C++ batch store (native/store.py)
 
     # optimization
     iterations: int = 5_000_000
@@ -133,12 +133,12 @@ class ExperimentConfig:
             raise ValueError(f"latent_levels {self.latent_levels} must be in [1, {len(self.filter_channels)}]")
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got '{self.dtype}'")
-        if self.augment_on == "host":
-            raise NotImplementedError("augment_on='host' is not ported to PyTorch yet; use 'device'")
-        if self.augment_on != "device":
+        if self.augment_on not in ("device", "host"):
             raise ValueError(f"augment_on must be 'device' or 'host', got '{self.augment_on}'")
         if self.loader not in ("h5py", "native"):
             raise ValueError(f"loader must be 'h5py' or 'native', got '{self.loader}'")
+        if self.loader == "native" and self.resize_to is not None:
+            raise ValueError("loader='native' serves raw records; resize_to needs the h5py provider's post-processing")
         if len(self.image_size) not in (2, 3):
             raise ValueError(f"image_size must have 2 or 3 axes, got {self.image_size}")
         if self.is_3d and self.model not in ("phiseg", "phiseg3d"):

@@ -3,16 +3,21 @@
 
     python -m unet_zoo_tpu_torch.train EXP [--local] [--iterations N] [--log-root DIR] [--resume [CKPT]] [MESH]
     python -m unet_zoo_tpu_torch.eval  EXP [--local] [--checkpoint best_loss] [--num-repeats R] [--num-samples N]
-                                           [--export-predictions] [MESH]
+                                           [--generate-images] [--export-predictions] [MESH]
     MESH: [--mesh data=N[,space=K]] [--space K] [--coordinator HOST:PORT --num-processes N --process-id I]
 
 EXP is a registry name (e.g. ``phiseg_7_5_12``) or the path of a ``.py``
 file that defines ``config = ExperimentConfig(...)``; the definition is
 copied into the log directory. Both run on the CUDA card unless given
-``--device cpu``, and raise where there is no card. ``--export-predictions``
-(BraTS) writes each evaluated volume's label map as NIfTI after the test
-sweep, from 10 samples a volume whatever ``--num-samples`` says, as the JAX
-CLI does. The JAX CLI's image export is not ported.
+``--device cpu``, and raise where there is no card. The data come from the
+experiment's cache (``data.cache``: HDF5 where ``h5py`` imports, else a
+directory of ``.npy`` files), built from the raw data on first use. After
+the test sweep, ``--generate-images`` writes PNGs of the first 10 test
+images, their ground truth and 10 samples of each into ``samples`` in the
+log directory (``Trainer.generate_images``; BraTS: mid-depth slices), and
+``--export-predictions`` (BraTS) writes each evaluated volume's label map
+as NIfTI; both take the method's 10 samples whatever ``--num-samples``
+says, as the JAX CLI does.
 
 Data parallelism: the JAX CLI's mesh flags, parsed as it parses them. One
 JAX process drives every visible device, a process here drives one card (or
@@ -47,8 +52,10 @@ from unet_zoo_tpu_torch.parallel.space import check_space
 from unet_zoo_tpu_torch.training.trainer import Trainer
 
 
-def setup_logger(log_dir: str, to_file: bool = True) -> logging.Logger:
-    """Per-run console logging, and the ``run.log`` file where ``to_file``."""
+def setup_logger(log_dir: str, to_file: bool = True) -> list:
+    """Per-run console logging, and the ``run.log`` file where ``to_file``;
+    returns the handlers added to the root logger (``_finish`` takes them
+    off again, so that a process running several CLI calls logs each once)."""
     root = logging.getLogger()
     root.setLevel(logging.INFO)
     fmt = logging.Formatter("%(asctime)s %(name)s %(message)s")
@@ -59,7 +66,7 @@ def setup_logger(log_dir: str, to_file: bool = True) -> logging.Logger:
     for handler in handlers:
         handler.setFormatter(fmt)
         root.addHandler(handler)
-    return root
+    return handlers
 
 
 def _load_sys_config(args) -> SystemConfig:
@@ -144,16 +151,16 @@ def make_cli_mesh(args, batch_size: int) -> Optional[Mesh]:
 
 
 def _setup(args) -> tuple:
-    """(experiment, system config, log directory, mesh); logging, into the
-    log directory on process 0 alone."""
+    """(experiment, system config, log directory, mesh, log handlers);
+    logging, into the log directory on process 0 alone."""
     cfg = load_experiment(args.experiment)
     sys_cfg = _load_sys_config(args)
     if args.log_root:
         sys_cfg = dataclasses.replace(sys_cfg, log_root=args.log_root)
     log_dir = os.path.join(sys_cfg.log_root, cfg.log_dir_name, cfg.experiment_name)
     mesh = make_cli_mesh(args, cfg.batch_size)
-    setup_logger(log_dir, to_file=process_index() == 0)
-    return cfg, sys_cfg, log_dir, mesh
+    handlers = setup_logger(log_dir, to_file=process_index() == 0)
+    return cfg, sys_cfg, log_dir, mesh, handlers
 
 
 def _trainer(args, cfg, sys_cfg, log_dir, mesh) -> Trainer:
@@ -161,11 +168,17 @@ def _trainer(args, cfg, sys_cfg, log_dir, mesh) -> Trainer:
                    mesh=mesh)
 
 
-def _finish(trainer: Trainer) -> None:
-    """Closes the metrics streams and leaves the process group."""
-    trainer.close()
+def _finish(trainer: Optional[Trainer], handlers: list) -> None:
+    """Closes the metrics streams, leaves the process group and takes the
+    run's log handlers off the root logger."""
+    if trainer is not None:
+        trainer.close()
     if dist.is_initialized():
         dist.destroy_process_group()
+    root = logging.getLogger()
+    for handler in handlers:
+        root.removeHandler(handler)
+        handler.close()
 
 
 def train_main(argv=None) -> int:
@@ -178,12 +191,13 @@ def train_main(argv=None) -> int:
                         "scheduler, step, generator and the best metrics so far")
     args = p.parse_args(argv)
 
-    cfg, sys_cfg, log_dir, mesh = _setup(args)
+    cfg, sys_cfg, log_dir, mesh, handlers = _setup(args)
     if process_index() == 0:
         _copy_provenance(args.experiment, cfg, log_dir)
 
-    trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
+    trainer = None
     try:
+        trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
         if args.resume is not None:
             trainer.restore(args.resume)
             logging.getLogger(__name__).info("resumed from '%s' at step %d", args.resume, trainer.state.step)
@@ -191,7 +205,7 @@ def train_main(argv=None) -> int:
         trainer.train(data, iterations=args.iterations, validate=not args.no_validate)
         trainer.save_model("last")
     finally:
-        _finish(trainer)
+        _finish(trainer, handlers)
     return 0
 
 
@@ -201,23 +215,29 @@ def eval_main(argv=None) -> int:
     p.add_argument("--checkpoint", default="best_loss")
     p.add_argument("--num-repeats", type=int, default=10)
     p.add_argument("--num-samples", type=int, default=10)
+    p.add_argument("--generate-images", action="store_true",
+                   help="after the test sweep, write PNGs of the first 10 test images, their ground truth and 10 "
+                        "samples each into 'samples' in the log dir (BraTS: mid-depth slices)")
     p.add_argument("--export-predictions", action="store_true",
                    help="BraTS: write per-case .nii.gz label-map predictions (largest connected component a label, "
                         "reassembled to the original geometry where the cache carries crop offsets)")
     args = p.parse_args(argv)
 
-    cfg, sys_cfg, log_dir, mesh = _setup(args)
+    cfg, sys_cfg, log_dir, mesh, handlers = _setup(args)
     if args.export_predictions and not (cfg.is_3d and cfg.data_loader == "brats"):
         p.error("--export-predictions is a BraTS (3D) flow")
 
-    trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
+    trainer = None
     try:
+        trainer = _trainer(args, cfg, sys_cfg, log_dir, mesh)
         if trainer.is_main:  # the others wait at the barrier
             data = _build_data(cfg, sys_cfg)
             trainer.test(data, num_repeats=args.num_repeats, num_samples=args.num_samples, checkpoint=args.checkpoint)
+            if args.generate_images:
+                trainer.generate_images(data)  # the method's 10 samples, as the JAX CLI
             if args.export_predictions:
                 trainer.export_predictions(data)  # the method's 10 samples, as the JAX CLI
         barrier("eval")
     finally:
-        _finish(trainer)
+        _finish(trainer, handlers)
     return 0

@@ -27,6 +27,15 @@ card), and at most ``EVAL_WINDOW`` windows of images, or volumes, are in
 flight, each fetched into page-locked memory behind an event, so the host
 reads one while the card computes the next.
 
+With ``augment_on="host"`` the loop feeds from a ``PrefetchingLoader``
+(``data/augment_host.py``: the cv2 chain on a host thread pool, drawn from
+``host_rng``, which is seeded alike on every process) and the step does not
+warp on the device; without cv2 the Trainer raises at construction. A 2D
+PHiSeg evaluation above ``EVAL_SAMPLE_PIXELS`` samples x pixels decodes its
+samples ``EVAL_SAMPLE_CHUNK`` at a time from the whole fold's noise
+(``sample_chunk``). ``generate_images`` writes PNGs of test images, their
+ground truth and samples (``utils/png.py``).
+
 Data parallelism (``mesh``, ``parallel.make_mesh``; one process alone holds
 ``parallel.local_mesh``), the twin of the JAX ``Trainer(mesh=...)``, which
 jits the one-device step on the global batch with sharded inputs: every
@@ -61,7 +70,7 @@ import logging
 import math
 import os
 import time
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -112,6 +121,17 @@ PANELS = 4
 # whole peaks near 47 GiB of the card's 80, 4 at a time near 14 GiB, in the
 # same time (``chip_smoke.py`` phase 10 (c), PERF.md)
 VOLUME_SAMPLE_CHUNK = 4
+# a 2D PHiSeg fold above EVAL_SAMPLE_PIXELS samples x pixels decodes
+# EVAL_SAMPLE_CHUNK samples at a time; the LIDC 100-sample fold at 128x128
+# stays whole. At 512x512 in float32 with TF32 off, cuDNN's convolution
+# workspace sets the peak of a fold of 2 to 16 samples near 31-35 GiB, and
+# chunks of 2 to 6 run several times slower than the whole fold; one sample
+# at a time peaks near 1 GiB in the whole fold's time (NVIDIA H100 80GB HBM3,
+# 700 W; tools/torch_sample_chunks.py, PERF.md)
+EVAL_SAMPLE_PIXELS = 100 * 128 * 128
+EVAL_SAMPLE_CHUNK = 1
+# the eval_generator salt of generate_images (validation takes 0, test 1)
+GENERATE_SALT = 2
 BRATS_REGIONS = ("wt", "tc", "et")
 # the latent families: z noise in the step, a loss on the mask
 LATENT_FAMILIES = ("phiseg", "phiseg3d", "prob_unet")
@@ -199,6 +219,12 @@ class Trainer:
         if self.is_main:
             os.makedirs(self.log_dir, exist_ok=True)
         self.seed = cfg.seed if seed is None else seed
+        # the host augmentation's draws (augment_on="host"), seeded alike on every process
+        self.host_rng = np.random.default_rng(self.seed)
+        if cfg.augment_on == "host":
+            from unet_zoo_tpu_torch.data.augment_host import _cv2
+
+            _cv2()  # raises an ImportError naming cv2 where it is missing: no fallback to the device
         # two seeds split from one, as the JAX trainer splits its root key
         k_params, k_aug = torch.randint(2 ** 62, (2,), generator=torch.Generator().manual_seed(self.seed)).tolist()
         model_kwargs = cfg.model_kwargs()
@@ -253,8 +279,12 @@ class Trainer:
         (``AugmentParams``, or ``Augment3DParams`` for a 3D experiment), or
         with draws from the state's generator. x and y are this process's
         rows, and the draws, given or drawn, are the global batch's, of
-        which it keeps its rows (all of them in one process)."""
+        which it keeps its rows (all of them in one process). With
+        ``augment_on="host"`` the batch arrives augmented (``train``'s
+        ``PrefetchingLoader``) and is only moved."""
         x, y = x.to(self.device), y.to(self.device)
+        if self.cfg.augment_on == "host":
+            return x, y
         total, rows = self._global(x.shape[0])
         if self.cfg.is_3d:
             opts = self.cfg.augmentation_options_3d
@@ -354,20 +384,31 @@ class Trainer:
             log.info("state already at step %d >= %d; nothing to do", start, n_iter)
             return None
         log.info("starting training: filters=%s batch=%d", cfg.filter_channels, cfg.batch_size)
+        source, loader = data.train, None
+        host_opts = cfg.augmentation_options_3d if cfg.is_3d else cfg.augmentation_options
+        if cfg.augment_on == "host" and host_opts is not None:
+            from unet_zoo_tpu_torch.data.augment_host import PrefetchingLoader
+
+            # every process draws and augments the same global batch, then takes its rows
+            source = loader = PrefetchingLoader(data.train, cfg.batch_size, opts=host_opts, rng=self.host_rng)
         last_aux = None
-        for self.iteration in range(start + 1, n_iter + 1):
-            x, y = data.train.next_batch(cfg.batch_size)
-            last_aux = self.train_step(self._to_device(shard_batch(self.mesh, x)),
-                                       self._to_device(shard_batch(self.mesh, y)))
-            if not self.is_main:
-                continue
-            if validate and self.iteration % cfg.validation_frequency == 0:
-                self.validate(data)
-            if self.iteration % cfg.logging_frequency == 0:
-                values = {k: float(last_aux[k]) for k in ("loss", "kl", "recon")}
-                values["lr"] = float(self.state.sched.lr)
-                log.info("iteration %d loss %.5f", self.iteration, values["loss"])
-                self.training_writer.scalars(self.iteration, values)
+        try:
+            for self.iteration in range(start + 1, n_iter + 1):
+                x, y = source.next_batch(cfg.batch_size)
+                last_aux = self.train_step(self._to_device(shard_batch(self.mesh, x)),
+                                           self._to_device(shard_batch(self.mesh, y)))
+                if not self.is_main:
+                    continue
+                if validate and self.iteration % cfg.validation_frequency == 0:
+                    self.validate(data)
+                if self.iteration % cfg.logging_frequency == 0:
+                    values = {k: float(last_aux[k]) for k in ("loss", "kl", "recon")}
+                    values["lr"] = float(self.state.sched.lr)
+                    log.info("iteration %d loss %.5f", self.iteration, values["loss"])
+                    self.training_writer.scalars(self.iteration, values)
+        finally:
+            if loader is not None:
+                loader.close()
         barrier("train")
         log.info("finished training.")
         return last_aux
@@ -390,6 +431,28 @@ class Trainer:
         cfg = self.cfg
         return list(cfg.annotator_range) if cfg.annotator_range is not None else list(range(cfg.num_labels_per_subject))
 
+    def sample_chunk(self, x: torch.Tensor, n_samples: int) -> Optional[int]:
+        """Samples a PHiSeg fold of ``x`` (1, *S, C) decodes at a time: for a
+        volume ``VOLUME_SAMPLE_CHUNK``; for an image all of them (None) up to
+        ``EVAL_SAMPLE_PIXELS`` samples x pixels, else ``EVAL_SAMPLE_CHUNK``."""
+        if self.cfg.is_3d:
+            return VOLUME_SAMPLE_CHUNK
+        return None if n_samples * math.prod(x.shape[1:-1]) <= EVAL_SAMPLE_PIXELS else EVAL_SAMPLE_CHUNK
+
+    def _sample(self, x: torch.Tensor, n_samples: int, generator: Optional[torch.Generator], eps=None
+                ) -> torch.Tensor:
+        """``model.sample(x, n_samples)`` of the family: the U-Net's n equal
+        predictions, ProbUNet's and PHiSeg's prior samples from ``eps`` or
+        ``generator`` (PHiSeg's decoded ``sample_chunk`` samples at a time,
+        its whole fold's noise drawn first, so the chunks decode what the
+        whole fold does)."""
+        model, family = self.state.model, self.cfg.model
+        if family == "unet":
+            return model.sample(x, n_samples)
+        if family == "prob_unet":
+            return model.sample(x, n_samples, eps=eps, generator=generator)
+        return model.sample(x, n_samples, eps=eps, generator=generator, chunk=self.sample_chunk(x, n_samples))
+
     def eval_image(self, x: torch.Tensor, y_all: torch.Tensor, y_chosen: torch.Tensor, n_samples: int,
                    n_loss: int = 1, salt: int = 0, index: int = 0, eps=None, loss_eps=None) -> Dict[str, torch.Tensor]:
         """One image's evaluation, the twin of the JAX ``_eval_image_fn``:
@@ -403,9 +466,12 @@ class Trainer:
         package runs the forward once more). The z noise comes from
         ``eval_generator(salt, index)``, or ``eps`` (for ``sample``) and
         ``loss_eps`` (ProbUNet: the posterior's (n_loss, latent_dim);
-        PHiSeg: (posterior, prior) lists) replace it. Makes no host sync;
-        returns device tensors ``ged``, ``ncc``, ``dice``, ``loss``, ``kl``,
-        ``recon``, ``mean_pred`` and ``sample0``."""
+        PHiSeg: (posterior, prior) lists) replace it. PHiSeg decodes its
+        samples ``sample_chunk`` at a time, which bounds the memory of a
+        large fold (100 samples at 512x512) and gives the whole fold's
+        logits. Makes no host sync; returns device tensors ``ged``,
+        ``ncc``, ``dice``, ``loss``, ``kl``, ``recon``, ``mean_pred`` and
+        ``sample0``."""
         model = self.state.model
         family = self.cfg.model
         stochastic = family in ("phiseg", "prob_unet")
@@ -414,8 +480,7 @@ class Trainer:
         model.eval()
         try:
             with torch.inference_mode():
-                logits = (model.sample(x, n_samples, eps=eps, generator=generator) if stochastic
-                          else model.sample(x, n_samples))
+                logits = self._sample(x, n_samples, generator, eps)
                 out = image_metrics(logits[0], y_all, y_chosen[0])
                 if stochastic:
                     x_rep, y_rep = x.repeat(n_loss, 1, 1, 1), y_chosen.repeat(n_loss, 1, 1)
@@ -436,8 +501,9 @@ class Trainer:
         """Images ``start:stop`` of ``split`` (``images`` (N, *S), ``labels``
         (N, *S, A)) on the device: images (n, *S, 1) float32 and labels (n,
         A, *S), copied as uint8 and widened to int64 there."""
-        images = np.asarray(split.images[start:stop], dtype=np.float32)[..., None]
-        labels = np.ascontiguousarray(np.moveaxis(np.asarray(split.labels[start:stop]), -1, 1), dtype=np.uint8)
+        # copies: a memory-mapped cache gives read-only views
+        images = np.array(split.images[start:stop], dtype=np.float32)[..., None]
+        labels = np.array(np.moveaxis(np.asarray(split.labels[start:stop]), -1, 1), dtype=np.uint8, order="C")
         return self._to_device(images), self._to_device(labels).long()
 
     def evaluate_images(self, images: torch.Tensor, labels: torch.Tensor, chosen: List[int], n_samples: int,
@@ -623,7 +689,7 @@ class Trainer:
         model.eval()
         try:
             with torch.inference_mode():
-                logits = model.sample(x, n_samples, eps=eps, generator=generator, chunk=VOLUME_SAMPLE_CHUNK)
+                logits = self._sample(x, n_samples, generator, eps)
                 mean_probs = torch.softmax(logits[0].float(), dim=-1).mean(0)
                 regions = range(y.shape[-1])
                 out = {
@@ -793,6 +859,68 @@ class Trainer:
             paths.append(path)
         log.info("wrote %d predictions to %s", len(paths), out_dir)
         return paths
+
+    # sample images
+
+    def generate_images(self, data, num_samples: int = 10, out_dir: Optional[str] = None,
+                        max_images: Optional[int] = 10, eps: Optional[Sequence] = None) -> str:
+        """PNGs of the first ``max_images`` test images (all with None), the
+        twin of the JAX ``generate_images``: ``img_{i}.png``, the first
+        annotator's ``gt_{i}.png`` and ``sample_{i}_{s}.png``, the argmax of
+        each of ``num_samples`` samples. A 3D BraTS experiment writes the
+        mid-depth slice of its evaluation split (``_brats_eval_split``): the
+        last (flair) channel, the whole-tumour ground truth, and each
+        sample's whole-tumour prediction (softmax > 0.5). Each array is
+        scaled to 0-255 by its own minimum and maximum (an all-zero mask
+        stays zero) and written by ``utils.png``. The z noise of image i
+        comes from ``eval_generator(GENERATE_SALT, i)``, or ``eps[i]``
+        replaces it (``sample``'s ``eps``). Writes into ``out_dir`` (default
+        ``samples`` in the log directory) and returns it."""
+        from unet_zoo_tpu_torch.utils.png import write_png
+
+        out_dir = out_dir or os.path.join(self.log_dir, "samples")
+        os.makedirs(out_dir, exist_ok=True)
+
+        def to_png(arr, name):
+            arr = np.asarray(arr, dtype=np.float32)
+            lo, hi = arr.min(), arr.max()
+            arr = (arr - lo) / max(hi - lo, 1e-8)
+            write_png(os.path.join(out_dir, name), (arr * 255).astype(np.uint8))
+
+        if self._is_brats():
+            split = self._brats_eval_split(data)
+            images = ((img, lbl) for img, lbl, _ in (data.get(ii, split) for ii in range(data.num_examples(split))))
+            n = data.num_examples(split)
+        else:
+            n = data.test.images.shape[0]
+            images = ((np.array(data.test.images[ii], dtype=np.float32)[..., None], data.test.labels[ii])
+                      for ii in range(n))
+        n = n if max_images is None else min(n, max_images)
+        model = self.state.model
+        was_training = model.training
+        model.eval()
+        try:
+            for ii, (img, lbl) in zip(range(n), images):
+                with torch.inference_mode():
+                    logits = self._sample(self._to_device(img[None]), num_samples,
+                                          self.eval_generator(GENERATE_SALT, ii), None if eps is None else eps[ii])
+                    if self._is_brats():  # the whole tumour's probability
+                        preds = (torch.softmax(logits[0].float(), dim=-1)[..., 0] > 0.5).cpu().numpy()
+                    else:
+                        preds = logits[0].argmax(-1).cpu().numpy()  # (n, *S)
+                if self._is_brats():
+                    mid = img.shape[0] // 2
+                    img, gt, preds = img[mid, ..., -1], lbl[mid, ..., 0], preds[:, mid]
+                else:
+                    img, gt = img[..., 0], np.asarray(lbl)[..., 0]
+                to_png(img, f"img_{ii}.png")
+                to_png(gt, f"gt_{ii}.png")
+                for s_ in range(num_samples):
+                    to_png(preds[s_], f"sample_{ii}_{s_}.png")
+        finally:
+            model.train(was_training)
+        log.info("wrote the sample PNGs of %d images to %s", n, out_dir)
+        return out_dir
 
 
     # checkpoints and observability
