@@ -226,7 +226,28 @@ Phases, each printing its own lines:
    ``augment_on="host"``: 3 steps where cv2 imports, else the Trainer's
    ImportError; (d) ``eval_image`` of one ``phiseg_uzh_7_5_512`` image at 100
    samples decoded in chunks (ms, peak MiB), and at 16 samples the chunked
-   evaluation bit for bit against the whole fold.
+   evaluation bit for bit against the whole fold;
+14. spatial sharding (``unet_zoo_tpu_torch.parallel.space``, the mesh's
+   space axis): first the halo-tile kernel, each BN-free block at bs64 in
+   bf16 run stage by stage on SPACE_RANKS tiles of h + 2 rows (the zero-
+   padded rows a halo exchange gives) and cropped, against the unsplit
+   kernel (bit for bit or not, said) and the plain version at phase 2's
+   gates; then SPACE_RANKS processes sharing the one card over gloo
+   (``chip_smoke.py --space-worker``), one data group split in height,
+   started together with a time limit: (a) the bf16 ``unet`` step at bs64,
+   128x128, filters 32/64/128/192, SPACE_UNET_STEPS steps, 21 conv-chain
+   launches a step on each process, the first step's loss and gradient
+   against one process's step from the same state and draws (phase 5's
+   kernel-vs-plain gates), ms a step; (b) the registered
+   ``phiseg_uzh_7_5_512`` step (f32, TF32 off, bs12, 512x512; each process
+   within SPACE_MEMORY_FRACTION of the card) against one process's (phase
+   6's train-mode gates), each process's peak MiB beside the one process's
+   alone and within the same share, both of which must be higher, and one
+   forward's graph MiB a process, at most SPACE_GRAPH_SHARE of one
+   process's; (c) the twin of
+   ``dryrun_multichip``: ``phiseg`` at the published widths 32-192, 64x64,
+   two steps, then the tiny rank-5 PHiSeg3D step, losses finite. The
+   processes hold one state after every step.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -489,6 +510,7 @@ UZH_EXPERIMENT = "phiseg_uzh_7_5_512"
 UZH_REV_EXPERIMENT = "phiseg_uzh_rev_7_5_512"
 UZH_PARITY = ("phiseg_uzh_7_5_192", "phiseg_uzh_rev_7_5_192")  # (a) at the smallest registered resolution
 UZH_STEPS = 2  # the counted run of the registered step
+UZH_TIMED_STEPS = 1  # (b): steps timed a mode after its warm-up (a strict-f32 step takes seconds)
 UZH_SPLITS = (12, 9, 2)  # synthetic train / validation / test slices; validation > EVAL_IMAGE_WINDOW
 UZH_SAMPLES = 16  # the registered validation_samples
 UZH_MAT_SLICES, UZH_MAT_SIZE = 160, 192  # (e): 10 train, 100 validation, 50 test
@@ -530,6 +552,30 @@ DP_PARAM_ATOL_LR, ROUNDING_OF_MAX, ROUNDING_FLIP_LR, FLIP_SHARE = 2e-2, 1e-3, 2.
 # away where both trained on the first half of every batch, 0.52 where each
 # stepped on its own gradient
 DP_TRAIN_REL_MOVE = 0.25
+
+# phase 14: spatial sharding
+SPACE_RANKS = 2  # processes sharing the one card over gloo: one data group, its height split in two
+SPACE_TIMEOUT = 600  # seconds for the two processes' whole run
+SPACE_UNET_STEPS = 2  # (a): the first held against one process, both timed
+SPACE_UZH_ONE_PEAK_MIB = 48972.5  # (b): the one-process peak phase 11 recorded (PERF.md), printed beside this run's
+# each process may take this share of the card's memory: the two share it,
+# and a strict-f32 cuDNN convolution takes the largest workspace that the
+# allocator grants (an FFT forward of tens of GiB at 512x512), so without a
+# share the first process to ask starves the other (out of memory at 78.5
+# GiB on an NVIDIA H100 80GB HBM3, PERF.md); within its share cuDNN takes the plans
+# whose workspace fits
+SPACE_MEMORY_FRACTION = 0.47
+# (b): the most of one process's forward graph (the autograd graph's saved
+# tensors) that a space-2 process may hold: half the rows plus the halo
+# tiles' copies read 60.8% on an NVIDIA H100 80GB HBM3 (PERF.md), a layout
+# that kept most levels replicated would read near 100%
+SPACE_GRAPH_SHARE = 0.75
+# (c): the twin of dryrun_multichip (__graft_entry__.py): PHiSeg at the
+# published widths on a small image, two steps; then the tiny PHiSeg3D
+SPACE_DRYRUN_FILTERS = (32, 64, 128, 192, 192, 192, 192)
+SPACE_DRYRUN_SIZE = 64
+SPACE_DRYRUN_3D = dict(filter_channels=(2, 4, 4), latent_levels=2, n_classes=3, num_labels_per_subject=1,
+                       input_channels=4, image_size=(16, 16, 16))
 
 # phase 13: the CLIs on the card
 CLI_MODULES = ("h5py", "sklearn", "PIL", "cv2", "tensorboardX")
@@ -2457,9 +2503,9 @@ def brats_phase(conv_chain, dev, card: str, log_root: str) -> dict:
 def uzh_step(dev, card: str, log_dir: str, x, y, label: str, experiment: str = UZH_EXPERIMENT, tf32: bool = False,
              **changes) -> dict:
     """One Trainer of ``experiment`` (with ``changes`` and cuDNN's TF32 as
-    ``tf32`` says): a warm-up step, then two steps each timed by events
-    around its phases; ``ms`` and ``phases_ms`` of the faster one, the
-    host's time to issue it (``host_ms``), and the peak MiB over both above
+    ``tf32`` says): a warm-up step, then UZH_TIMED_STEPS steps each timed by
+    events around its phases; ``ms`` and ``phases_ms`` of the fastest, the
+    host's time to issue it (``host_ms``), and the peak MiB over them above
     what the card held before this trainer was built."""
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
@@ -2473,7 +2519,7 @@ def uzh_step(dev, card: str, log_dir: str, x, y, label: str, experiment: str = U
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     runs = []
-    for _ in range(2):
+    for _ in range(UZH_TIMED_STEPS):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         t0 = time.perf_counter()
         ev[0].record()
@@ -3035,6 +3081,352 @@ def dp_phase(conv_chain, dev, card: str, log_root: str) -> dict:
     return {"world1": world1, "ranks": ranks}
 
 
+def halo_tile_blocks(conv_chain, dev, card: str) -> dict:
+    """Phase 14's halo tiles: each BN-free block at TRAIN_BATCH in bf16 run
+    as the space path runs it on SPACE_RANKS processes, stage by stage on
+    tiles of h + 2 rows of the zero-padded stage input (what a halo exchange
+    gives), each cropped of its two edge rows and stitched, against the
+    unsplit kernel on the whole image (bit for bit, or max|diff|) and the
+    plain version at phase 2's gate."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(14)
+    rows, identical, worst = [], True, 0.0
+    for block, size, ci, co in BLOCKS:
+        x = torch.randn((TRAIN_BATCH, size, size, ci), generator=gen).to(dev, torch.bfloat16)
+        ks, bs = chain_weights([(ci, co)] + [(co, co)] * (STAGES_PER_BLOCK - 1), gen, dev)
+        whole = conv_chain.fused_conv_chain(x, ks, bs)
+        ref = conv_chain.fused_conv_chain_reference(x, ks, bs)
+        h = size // SPACE_RANKS
+        y = x
+        for k, b in zip(ks, bs):
+            padded = F.pad(y, (0, 0, 0, 0, 1, 1))
+            y = torch.cat([conv_chain.fused_conv_chain(padded[:, r * h:r * h + h + 2].contiguous(), [k], [b])[:, 1:-1]
+                           for r in range(SPACE_RANKS)], dim=1)
+        torch.cuda.synchronize()
+        same = torch.equal(y, whole)
+        diff = (y.float() - whole.float()).abs().max().item()
+        err = (y.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        tol = BF16_ULPS * bf16_ulp(scale)
+        log(f"[space] halo tiles {block} ({TRAIN_BATCH}, {size}, {size}, {ci})->{co} bf16 on {SPACE_RANKS} tiles of "
+            f"{h}+2 rows: {'bit-identical to' if same else f'max|diff| {diff:.3e} from'} the unsplit kernel; "
+            f"plain version max|diff| {err:.3e} (tol {tol:.3e})")
+        check(err <= tol and diff <= tol, f"halo tiles {block}: {err} from the plain version, {diff} from the kernel")
+        identical &= same
+        worst = max(worst, err)
+        rows.append({"block": block, "bit_identical": same, "max_abs_err": err, "vs_unsplit": diff})
+    log(f"[space] halo tiles: the {len(BLOCKS)} blocks {'bit-identical to' if identical else 'within the gate of'} "
+        f"the unsplit kernel | card: {card}")
+    return {"bit_identical": identical, "max_abs_err": worst, "rows": rows}
+
+
+def space_batch(dev, batch: int, size: int, classes: int, seed: int):
+    """A batch of (batch, size, size, 1) noise from a fixed seed, labelled
+    in ``classes`` bands of a 9x9 box blur of it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((batch, 1, size, size), generator=gen, device=dev)
+    blur = torch.nn.functional.avg_pool2d(x, 9, 1, 4)
+    edges = torch.linspace(-0.1, 0.1, classes - 1, device=dev) if classes > 2 else torch.zeros(1, device=dev)
+    return x.view(batch, size, size, 1), torch.bucketize(blur, edges).view(batch, size, size)
+
+
+def graph_mib(tr, x, y) -> float:
+    """MiB that one train-mode forward and loss of ``tr`` leave allocated
+    (the autograd graph's saved tensors: the step's activation memory,
+    without the backward's and cuDNN's transient workspace), inside
+    ``space_sharding`` as the step runs them; no backward follows."""
+    from unet_zoo_tpu_torch.parallel.space import space_sharding
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with space_sharding(tr.mesh):
+        xa, ya = tr.augment(x, y)
+        loss, _ = tr.forward_loss(xa, ya)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del loss, xa, ya
+    return held / MIB
+
+
+def space_worker(rank: int, port: int, workdir: str, world: int = SPACE_RANKS, backend: str = "gloo") -> None:
+    """One of ``world`` processes of phase 14 on a mesh of space
+    SPACE_RANKS (``chip_smoke.py --space-worker RANK PORT WORKDIR [WORLD
+    BACKEND]``): by default SPACE_RANKS processes on the one card over gloo,
+    each within SPACE_MEMORY_FRACTION of it; with WORLD 4 and nccl one
+    process a card, data 2 (``tools/torch_space_nccl.py``). Each step takes
+    this process's data group's images of the global batch. Writes
+    ``WORKDIR/space_<rank>.pt`` for the parent to check."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from unet_zoo_tpu_torch.data.augment import AugmentOptions
+    from unet_zoo_tpu_torch.experiments import ExperimentConfig, get_experiment
+    from unet_zoo_tpu_torch.ops.pallas import conv_chain
+    from unet_zoo_tpu_torch.parallel import init_distributed, make_mesh, replicated, shard_batch
+    from unet_zoo_tpu_torch.training import Trainer
+
+    check(init_distributed(f"127.0.0.1:{port}", world, rank, device="cuda", backend=backend), "no process group")
+    check(dist.get_backend() == backend, f"the group runs {dist.get_backend()}")
+    mesh = make_mesh(space=SPACE_RANKS)
+    dev = mesh.device
+    check((mesh.data, mesh.space) == (world // SPACE_RANKS, SPACE_RANKS), f"mesh {mesh}")
+    if world > torch.cuda.device_count():
+        torch.cuda.set_per_process_memory_fraction(SPACE_MEMORY_FRACTION, dev)
+    log(f"[space worker {rank}] {backend} mesh {mesh.data}x{mesh.space} on {dev}")
+    log_dir = os.path.join(workdir, f"log{rank}")
+    out = {}
+
+    def timed_step(tr, x, y):
+        torch.cuda.synchronize()
+        conv_chain.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = tr.train_step(shard_batch(mesh, x), shard_batch(mesh, y))
+        end.record()
+        end.synchronize()
+        check(replicated(mesh, [*tr.state.model.parameters(), *tr.state.model.buffers()]),
+              f"process {rank}: the processes' states differ after a step")
+        return {"loss": aux["loss"].item(), "ms": start.elapsed_time(end), "launches": conv_chain.launches}
+
+    # (a): the bf16 U-Net at bs64, 128x128
+    cfg = dataclasses.replace(get_experiment("unet"), dtype="bfloat16", batch_size=TRAIN_BATCH)
+    xs, ys = train_batches(SPACE_UNET_STEPS, dev)
+    tr = Trainer(cfg, seed=0, log_dir=log_dir, mesh=mesh)
+    out["unet"] = []
+    for i in range(SPACE_UNET_STEPS):
+        out["unet"].append(timed_step(tr, xs[i], ys[i]))
+        if i == 0:
+            out["unet_grads"] = {n: p.grad.cpu() for n, p in tr.state.model.named_parameters()}
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[space worker {rank}] (a) {out['unet']}")
+
+    # (b): the registered UZH step, f32 with TF32 off, bs12, 512x512
+    cfg = get_experiment(UZH_EXPERIMENT)
+    x, y = space_batch(dev, cfg.batch_size, cfg.image_size[0], cfg.n_classes, seed=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = Trainer(cfg, seed=0, log_dir=log_dir, mesh=mesh)
+    out["uzh"] = timed_step(tr, x, y)
+    out["uzh"]["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    out["uzh_grads"] = {n: p.grad.cpu() for n, p in tr.state.model.named_parameters()}
+    out["uzh_state"] = {k: v.cpu() for k, v in tr.state.model.state_dict().items() if "running" in k}
+    tr.state.optimizer.zero_grad(set_to_none=True)
+    out["uzh"]["graph_mib"] = graph_mib(tr, shard_batch(mesh, x), shard_batch(mesh, y))
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[space worker {rank}] (b) {out['uzh']}")
+
+    # (c): the twin of dryrun_multichip
+    cfg = ExperimentConfig(experiment_name="dryrun", model="phiseg", filter_channels=SPACE_DRYRUN_FILTERS,
+                           latent_levels=5, n_classes=2, batch_size=2, image_size=(SPACE_DRYRUN_SIZE,) * 2,
+                           augmentation_options=AugmentOptions(do_rotations=True, do_fliplr=True, augment_every_nth=2,
+                                                               nlabels=2))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, SPACE_DRYRUN_SIZE, SPACE_DRYRUN_SIZE, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 2, (2, SPACE_DRYRUN_SIZE, SPACE_DRYRUN_SIZE)))
+    tr = Trainer(cfg, seed=0, log_dir=log_dir, mesh=mesh)
+    out["dryrun"] = [timed_step(tr, x.to(dev), y.to(dev)) for _ in range(2)]
+    cfg3d = ExperimentConfig(experiment_name="dryrun3d", model="phiseg3d", data_loader="brats", batch_size=2,
+                             **SPACE_DRYRUN_3D)
+    x3 = torch.from_numpy(rng.standard_normal((2, 16, 16, 16, 4)).astype(np.float32))
+    y3 = torch.from_numpy((rng.random((2, 16, 16, 16, 3)) > 0.5).astype(np.float32))
+    tr = Trainer(cfg3d, seed=0, log_dir=log_dir, mesh=mesh)
+    out["dryrun3d"] = timed_step(tr, x3.to(dev), y3.to(dev))
+    torch.save(out, os.path.join(workdir, f"space_{rank}.pt"))
+    dist.destroy_process_group()
+    log(f"SPACE_DONE {rank}")
+
+
+def grads_apart(got: dict, want: dict) -> tuple:
+    """(the whole gradient's relative L2 distance, the worst tensor's
+    max|diff| over its max|want|)."""
+    g = torch.cat([got[n].reshape(-1).double().cpu() for n in want])
+    w = torch.cat([want[n].reshape(-1).double().cpu() for n in want])
+    worst = max(((got[n].float().cpu() - v.float().cpu()).abs().max() / v.float().abs().max().clamp_min(1e-30)).item()
+                for n, v in want.items())
+    return ((g - w).norm() / w.norm()).item(), worst
+
+
+def spawn_space(workdir: str, world: int = SPACE_RANKS, backend: str = "gloo", timeout: float = SPACE_TIMEOUT) -> tuple:
+    """Starts ``world`` phase-14 processes (``space_worker``) together,
+    each writing its output to ``WORKDIR/worker_<rank>.log``, and waits for
+    them within ``timeout`` seconds in all (then kills them); returns (what
+    each wrote, seconds)."""
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(workdir, f"worker_{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--space-worker", str(r), str(port),
+                               workdir, str(world), backend], stdout=f, stderr=subprocess.STDOUT)
+             for r, f in enumerate(logs)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    spawn_s = time.perf_counter() - t0
+    outs = [open(os.path.join(workdir, f"worker_{r}.log")).read() for r in range(world)]
+    failed = [(r, p.returncode, "\n".join(out.splitlines()[-40:])) for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0 or f"SPACE_DONE {r}" not in out]
+    check(not failed, "".join(f"space process {r} exited {rc}:\n{tail}\n" for r, rc, tail in failed))
+    return [torch.load(os.path.join(workdir, f"space_{r}.pt"), weights_only=False) for r in range(world)], spawn_s
+
+
+def space_phase(conv_chain, dev, card: str, log_root: str) -> dict:
+    """Phase 14: spatial sharding."""
+    t0 = time.perf_counter()
+    tiles = halo_tile_blocks(conv_chain, dev, card)
+    workdir = os.path.join(log_root, "space")
+    os.makedirs(workdir)
+    torch.cuda.empty_cache()
+    ranks, spawn_s = spawn_space(workdir)
+    mesh = f"{SPACE_RANKS} processes sharing the card over gloo, each within {SPACE_MEMORY_FRACTION} of it"
+    log(f"[space] {mesh} (one data group, the height split in {SPACE_RANKS}) ran (a)-(c) in {spawn_s:.1f} s | "
+        f"card: {card}")
+    result = {"tiles": tiles, "spawn_s": spawn_s,
+              **space_checks(conv_chain, dev, card, ranks, workdir, mesh, SPACE_MEMORY_FRACTION)}
+    result["seconds"] = time.perf_counter() - t0
+    log(f"[space] phase 14 took {result['seconds']:.1f} s | card: {card}")
+    return result
+
+
+def shared_peak(dev, card: str, cfg, x, y, share: float, workdir: str):
+    """The peak MiB of one process's step of ``cfg`` within ``share`` of the
+    card, the share each space process had (cuDNN then takes the plans
+    whose workspace fits), or None where it runs out of memory."""
+    from unet_zoo_tpu_torch.training import Trainer
+
+    torch.cuda.set_per_process_memory_fraction(share, dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    peak = None
+    try:
+        one = Trainer(cfg, dev, seed=0, log_dir=os.path.join(workdir, "one"))
+        one.train_step(x, y)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    except torch.OutOfMemoryError:
+        pass
+    finally:
+        one = None
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+    log(f"[space] (b) one process within {share} of the card, as each space process: "
+        f"{'out of memory' if peak is None else f'peak {peak:.1f} MiB'} | card: {card}")
+    return peak
+
+
+def space_checks(conv_chain, dev, card: str, ranks: list, workdir: str, mesh: str, share=None) -> dict:
+    """Phase 14 (a)-(c) from what the processes of ``mesh`` (its
+    description) wrote (``ranks``): the global batch's one-process steps on
+    ``dev`` from the same state and draws, and the gates; with ``share``
+    (each process's share of the card), also one process's UZH step within
+    that share (``shared_peak``)."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.training import Trainer
+
+    result = {}
+    per_step = len(BLOCKS) * STAGES_PER_BLOCK
+
+    # (a): the bf16 U-Net against one process from the same state and draws
+    launches = [[s["launches"] for s in r["unet"]] for r in ranks]
+    check(all(n == per_step for row in launches for n in row), f"space unet launches a process {launches}")
+    check(all(r["unet"][i]["loss"] == ranks[0]["unet"][i]["loss"] for r in ranks for i in range(SPACE_UNET_STEPS)),
+          "the processes' losses differ")
+    cfg = dataclasses.replace(get_experiment("unet"), dtype="bfloat16", batch_size=TRAIN_BATCH)
+    xs, ys = train_batches(1, dev)
+    one = Trainer(cfg, dev, seed=0, log_dir=os.path.join(workdir, "one"))
+    torch.cuda.synchronize()
+    conv_chain.launches = 0
+    loss = one.train_step(xs[0], ys[0])["loss"].item()
+    torch.cuda.synchronize()
+    check(conv_chain.launches == per_step, f"one-process unet step launched {conv_chain.launches}")
+    grads = {n: p.grad for n, p in one.state.model.named_parameters()}
+    got = ranks[0]
+    loss_rel = abs(got["unet"][0]["loss"] - loss) / abs(loss)
+    l2, worst = grads_apart(got["unet_grads"], grads)
+    ms = [[s["ms"] for s in r["unet"]] for r in ranks]
+    log(f"[space] (a) unet bf16 bs{TRAIN_BATCH} {IMAGE}x{IMAGE} at space {SPACE_RANKS}, {mesh}: {launches} conv-chain launches "
+        f"a step a process (halo tiles); step 1 against one process from the same state and draws: loss rel "
+        f"{loss_rel:.3e} (tol {TRAIN_LOSS_RTOL}), gradient rel L2 {l2:.3e}, worst tensor max|diff| {worst:.3e} of its "
+        f"max (tol {TRAIN_GRAD_RTOL_OF_MAX}); ms a step a process {ms} | "
+        f"card: {card}")
+    check(loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_RTOL_OF_MAX,
+          f"space unet: loss rel {loss_rel}, gradient worst {worst}")
+    result["unet"] = {"launches": launches, "loss_rel": loss_rel, "grad_rel_l2": l2, "grad_worst_of_max": worst,
+                      "ms": ms}
+    del one, grads
+    torch.cuda.empty_cache()
+
+    # (b): the registered UZH step against one process, and the peaks
+    cfg = get_experiment(UZH_EXPERIMENT)
+    x, y = space_batch(dev, cfg.batch_size, cfg.image_size[0], cfg.n_classes, seed=5)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = Trainer(cfg, dev, seed=0, log_dir=os.path.join(workdir, "one"))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    loss = one.train_step(x, y)["loss"].item()
+    ev[1].record()
+    torch.cuda.synchronize()
+    one_ms = ev[0].elapsed_time(ev[1])
+    one_peak = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+    grads = {n: p.grad.clone() for n, p in one.state.model.named_parameters()}
+    want_stats = {k: v.clone() for k, v in one.state.model.state_dict().items() if "running" in k}
+    one.state.optimizer.zero_grad(set_to_none=True)
+    one_graph = graph_mib(one, x, y)
+    graphs = [r["uzh"]["graph_mib"] for r in ranks]
+    loss_rel = abs(got["uzh"]["loss"] - loss) / abs(loss)
+    l2, _ = grads_apart(got["uzh_grads"], grads)
+    stats = max(((got["uzh_state"][k].to(dev) - v).abs().max() / v.abs().max()).item() for k, v in want_stats.items())
+    peaks = [r["uzh"]["peak_mib"] for r in ranks]
+    step_ms = [r["uzh"]["ms"] for r in ranks]
+    log(f"[space] (b) {UZH_EXPERIMENT} f32 (TF32 off) bs{cfg.batch_size} {cfg.image_size[0]}x{cfg.image_size[1]} at "
+        f"space {SPACE_RANKS}, {mesh}, against one process alone on a card from the same state and draws: loss rel "
+        f"{loss_rel:.3e} (tol {PHISEG_LOSS_RTOL}), gradient rel L2 "
+        f"{l2:.3e} (tol {PHISEG_TRAIN_GRAD_L2}), running statistics {stats:.3e} of their max (tol {PHISEG_STATS_RTOL}); "
+        f"peak MiB a process {', '.join(f'{p:.1f}' for p in peaks)} against {one_peak:.1f} for one process "
+        f"({SPACE_UZH_ONE_PEAK_MIB} recorded by phase 11); a forward's graph holds {', '.join(f'{g:.1f}' for g in graphs)} "
+        f"MiB a process against {one_graph:.1f}; ms a step a process "
+        f"{', '.join(f'{m:.1f}' for m in step_ms)}, one process {one_ms:.1f} | card: {card}")
+    check(loss_rel <= PHISEG_LOSS_RTOL and l2 <= PHISEG_TRAIN_GRAD_L2 and stats <= PHISEG_STATS_RTOL,
+          f"space uzh: loss rel {loss_rel}, gradient rel L2 {l2}, statistics {stats}")
+    del one, grads
+    torch.cuda.empty_cache()
+    # within a share of the card cuDNN's workspace fills what the share
+    # leaves, so a peak is held against one process within the same share
+    one_shared = None if share is None else shared_peak(dev, card, cfg, x, y, share, workdir)
+    check(max(peaks) < one_peak, f"space uzh: a process peaked {max(peaks):.1f} MiB, one process {one_peak:.1f}")
+    check(one_shared is None or max(peaks) < one_shared,
+          f"space uzh: a process peaked {max(peaks):.1f} MiB, one process within the same share {one_shared:.1f}")
+    check(max(graphs) <= SPACE_GRAPH_SHARE * one_graph,
+          f"space uzh: a process's graph holds {max(graphs):.1f} MiB, over {SPACE_GRAPH_SHARE} of one process's "
+          f"{one_graph:.1f}")
+    result["uzh"] = {"loss_rel": loss_rel, "grad_rel_l2": l2, "stats_of_max": stats, "peak_mib": peaks,
+                     "one_peak_mib": one_peak, "one_shared_peak_mib": one_shared, "graph_mib": graphs,
+                     "one_graph_mib": one_graph, "ms": step_ms, "one_ms": one_ms,
+                     "launches": [r["uzh"]["launches"] for r in ranks]}
+
+    # (c): the dryrun_multichip twin
+    losses = [[s["loss"] for s in r["dryrun"]] + [r["dryrun3d"]["loss"]] for r in ranks]
+    check(all(math.isfinite(v) for row in losses for v in row), f"dryrun losses {losses}")
+    log(f"[space] (c) dryrun_multichip twin at space {SPACE_RANKS}, {mesh}: phiseg filters {SPACE_DRYRUN_FILTERS} "
+        f"{SPACE_DRYRUN_SIZE}x{SPACE_DRYRUN_SIZE} bs2, losses {losses[0][:2]}; phiseg3d 16^3 bs2 loss "
+        f"{losses[0][2]:.4f}: finite | card: {card}")
+    result["dryrun_losses"] = losses[0]
+    return result
+
+
 def cli_file(workdir: str, run: str, name: str, changes: dict, iterations: int) -> str:
     """An experiment file taking the registered ``name`` with a validation at
     ``iterations`` on CLI_VALIDATION_IMAGES images and ``changes``."""
@@ -3540,8 +3932,12 @@ def main() -> int:
 
         # 13. the CLIs on the card, the native loader, host augmentation, chunked sampling
         cli = cli_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
-    log(f"[env] phases 1-13 took {time.perf_counter() - started:.1f} s")
+        # 14. spatial sharding
+        space = space_phase(conv_chain, dev, card, log_root)
+
+    log(f"[env] phases 1-14 took {time.perf_counter() - started:.1f} s")
     runs = cli["runs"]
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]
@@ -3614,6 +4010,21 @@ def main() -> int:
         "cli_launches": {k: {"train": runs[k]["train_launches"], "eval": runs[k]["eval_launches"]}
                          for k in ("unet_bf16",)},
         "cli_phase_s": cli["seconds"],
+        # phase 14: launches of each space-2 U-Net step on each of the two
+        # processes (on h + 2-row halo tiles), the halo tiles against the
+        # unsplit kernel, ms a step and the UZH peaks a process
+        "space_step_launches": space["unet"]["launches"],
+        "space_halo_tiles_bit_identical": space["tiles"]["bit_identical"],
+        "space_halo_tiles_max_abs_err": space["tiles"]["max_abs_err"],
+        "space_unet_step_ms": space["unet"]["ms"],
+        "space_uzh_step_ms": space["uzh"]["ms"],
+        "space_uzh_one_process_ms": space["uzh"]["one_ms"],
+        "space_uzh_peak_mib": space["uzh"]["peak_mib"],
+        "space_uzh_one_process_peak_mib": space["uzh"]["one_peak_mib"],
+        "space_uzh_one_process_shared_peak_mib": space["uzh"]["one_shared_peak_mib"],
+        "space_uzh_graph_mib": space["uzh"]["graph_mib"],
+        "space_uzh_one_process_graph_mib": space["uzh"]["one_graph_mib"],
+        "space_phase_s": space["seconds"],
     }, {
         "name": "fused_conv_chain_f32",
         "kernel": F32_ROUTE,
@@ -3659,5 +4070,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--space-worker"]:
+        space_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], *([int(sys.argv[5]), sys.argv[6]]
+                                                                         if len(sys.argv) > 5 else []))
         sys.exit(0)
     sys.exit(main())

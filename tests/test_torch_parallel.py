@@ -63,6 +63,7 @@ from unet_zoo_tpu_torch.parallel.mesh import (
     mean_over_processes,
     process_index,
 )
+from unet_zoo_tpu_torch.parallel import space as space_lib
 from unet_zoo_tpu_torch.parallel.space import constrain, space_sharding
 from unet_zoo_tpu_torch.training import Trainer, cli, restore_checkpoint
 
@@ -324,14 +325,23 @@ def test_init_distributed_alone_and_incomplete():
 
 
 def test_space_sharding_is_a_noop_at_space_1_and_raises_above():
-    x = torch.ones(2, 4, 4, 1)
+    """A no-op at space 1 (no ``Space`` is active, ``constrain`` is the
+    identity); active above it, where ``constrain`` keeps this process's
+    rows of an activation whose global height splits evenly; a one-process
+    run raises for a space axis of 2, which takes 2 processes."""
+    x = torch.arange(2 * 8 * 4 * 1, dtype=torch.float32).reshape(2, 8, 4, 1)
     for mesh in (None, make_mesh(device="cpu")):
-        with space_sharding(mesh):
-            assert constrain(x) is x
-    with pytest.raises(NotImplementedError, match="halo exchange"):
-        with space_sharding(Mesh(data=1, space=2, rank=0, world=2, group=None, device=CPU)):
-            pass
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with space_sharding(mesh) as sp:
+            assert sp is None and space_lib.current() is None and constrain(x) is x
+    second = Mesh(data=1, space=2, rank=1, world=2, group=None, device=CPU, space_group=object())
+    with space_sharding(second) as sp:
+        assert space_lib.current() is sp and (sp.size, sp.index, sp.up, sp.down) == (2, 1, 0, None)
+        assert torch.equal(sp.shard(x), x[:, 4:])  # records the pyramid 8x4 -> 4x2 -> 2x1 -> 1x1
+        assert torch.equal(constrain(x), x[:, 4:]) and constrain(x[:, 4:]).shape == (2, 4, 4, 1)
+        with pytest.raises(ValueError, match="rank 4 or 5"):
+            constrain(x[..., 0])
+    assert space_lib.current() is None
+    with pytest.raises(ValueError, match="needs 2 processes|does not divide"):
         make_mesh(1, space=2, device="cpu")
 
 
@@ -352,8 +362,8 @@ def _cli_args(*flags):
     (("--mesh", "data=2,depth=1"), "bad component"),
     (("--mesh", "data"), "bad component"),
     (("--mesh", "data=two"), "bad component"),
-    (("--space", "2"), "not built"),
-    (("--mesh", "data=1,space=2"), "not built"),
+    (("--space", "2"), "takes 2 processes.*--num-processes 2"),
+    (("--mesh", "data=1,space=2"), "takes 2 processes.*--num-processes 2"),
     (("--mesh", "space=1", "--space", "2"), "contradicts"),
     (("--mesh", "data=2"), "--num-processes 2"),
 ])

@@ -64,6 +64,7 @@ from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.models.blocks import PhiDownBlock, seq_name
 from unet_zoo_tpu_torch.models.prob_unet import kl_two_gauss_diag
 from unet_zoo_tpu_torch.models.unet import softmax_cross_entropy
+from unet_zoo_tpu_torch.parallel import space
 
 Levels = List[torch.Tensor]
 
@@ -112,7 +113,7 @@ class _PhiUpBlock(nn.Module):
                                             generator=generator, ndim=ndim))
 
     def forward(self, z: torch.Tensor, bridge: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = ops.resize_linear(z.to(bridge.dtype), bridge.shape[1:-1], align_corners=True)
+        x = ops.resize_linear(z.to(bridge.dtype), space.global_spatial(bridge), align_corners=True)
         return getattr(self, self.seq_name)(x), bridge
 
 
@@ -179,6 +180,9 @@ class _PhiEncoder(nn.Module):
             if teacher_z is not None:
                 z[lvl] = teacher_z[lvl]
             else:
+                if eps is None and space.current() is not None:
+                    raise ValueError("under spatial sharding the z noise is given (the global batch's rows: "
+                                     "Trainer.forward_loss), never drawn on a process's own rows")
                 e = eps[lvl] if eps is not None else torch.randn(
                     sigma[lvl].shape, generator=generator, device=sigma[lvl].device)
                 z[lvl] = mu[lvl] + sigma[lvl] * e
@@ -243,7 +247,7 @@ class _PhiLikelihood(nn.Module):
         post_c: List = [None] * L
         post_c[L - 1] = post_z[L - 1]
         for i in range(L - 2, -1, -1):
-            ups = ops.resize_linear(post_c[i + 1], post_z[i].shape[1:-1], align_corners=True)
+            ups = ops.resize_linear(post_c[i + 1], space.global_spatial(post_z[i]), align_corners=True)
             post_c[i] = getattr(self, f"postc{i}")((post_z[i], ups))
 
         s: List = [None] * L
@@ -363,12 +367,14 @@ class PHiSeg(nn.Module):
 
     def hierarchical_kl(self, post_mu: Levels, post_sigma: Levels, prior_mu: Levels,
                         prior_sigma: Levels) -> torch.Tensor:
-        """Sum over levels of w * KL, w = 4^level (the coarsest weighs most)."""
+        """Sum over levels of w * KL, w = 4^level (the coarsest weighs most).
+        Under spatial sharding each level's KL sums this process's pixels,
+        and a replicated level's counts on one process (``space.own``)."""
         total = 0.0
         for lvl in range(self.latent_levels):
             w = EXPONENTIAL_WEIGHT ** lvl if self.exponential_weighting else 1.0
             total = total + w * kl_two_gauss_diag(post_mu[lvl], post_sigma[lvl], prior_mu[lvl],
-                                                  prior_sigma[lvl], parity=self.kl_parity)
+                                                  prior_sigma[lvl], parity=self.kl_parity) * space.own(post_mu[lvl])
         return total
 
     def residual_multinoulli(self, s_list: Levels, mask: torch.Tensor) -> torch.Tensor:
@@ -384,12 +390,14 @@ class PHiSeg(nn.Module):
 
     @staticmethod
     def _multinoulli(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Batch mean of the pixel-summed CE; integer or one-hot masks."""
+        """Batch mean of the pixel-summed CE; integer or one-hot masks.
+        Under spatial sharding the sum is over this process's pixels (and a
+        replicated map's counts on one process, ``space.own``)."""
         if mask.ndim == logits.ndim:
             ce = -(mask.float() * F.log_softmax(logits.float(), dim=-1)).sum(-1)
         else:
             ce = softmax_cross_entropy(logits, mask)
-        return ce.reshape(ce.shape[0], -1).sum(1).mean()
+        return ce.reshape(ce.shape[0], -1).sum(1).mean() * space.own(logits)
 
     @staticmethod
     def accumulate_output(s_list: Levels, use_softmax: bool = False) -> torch.Tensor:

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.models.unet import UNet, softmax_cross_entropy
+from unet_zoo_tpu_torch.parallel import space
 
 # the weight of the sum of parameter norms in the loss (reference :368-370)
 REG_WEIGHT = 1e-5
@@ -107,7 +108,7 @@ class _LatentGaussian(nn.Module):
             onehot = F.one_hot(mask.long(), self.num_classes).to(x.dtype)
             x = torch.cat([x, onehot - 0.5], dim=-1)
         enc = self.encoder(x)
-        pooled = enc.float().mean((1, 2)).to(enc.dtype)
+        pooled = space.spatial_mean(enc.float()).to(enc.dtype)
         out = pooled.float() @ self.head_kernel.flatten(1).t() + self.head_bias
         mu, log_sigma = out.chunk(2, dim=-1)
         return mu, torch.exp(log_sigma)
@@ -256,12 +257,16 @@ class ProbUNet(nn.Module):
         """CE + KL + REG_WEIGHT * sum of parameter norms. ``last_conv``,
         which no term reads, gets an exact zero gradient (0 times its sum),
         as ``jax.grad`` gives it, so that coupled-L2 Adam still moves it by
-        its weight decay; a parameter with no gradient would be skipped."""
+        its weight decay; a parameter with no gradient would be skipped.
+        Under spatial sharding the CE sums this process's pixels, and the
+        KL of the latent vectors and the norms, which every process of the
+        space group holds whole, count on one of them (``space.own``)."""
         ce = softmax_cross_entropy(out["recon"], mask)
-        recon = ce.reshape(ce.shape[0], -1).sum(1).mean()
+        recon = ce.reshape(ce.shape[0], -1).sum(1).mean() * space.own(out["recon"])
         kl = kl_two_gauss_diag(out["post_mu"], out["post_sigma"], out["prior_mu"], out["prior_sigma"],
-                               parity=self.kl_parity)
+                               parity=self.kl_parity) * space.own(out["post_mu"])
         reg = _SumOfNorms.apply(*(p for _, p in self.regularized_parameters()))
+        reg = reg * space.own(reg)
         untouched = sum(p.sum() for p in self.last_conv.parameters()) * 0.0
         loss = recon + kl + REG_WEIGHT * reg + untouched
         return loss, {"loss": loss, "kl": kl, "recon": recon}

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.models.blocks import DownBlock
+from unet_zoo_tpu_torch.parallel import space
 
 
 class UNet(nn.Module):
@@ -61,7 +62,7 @@ class UNet(nn.Module):
             if i != n - 1:
                 skips.append(x)
         for i in range(n - 2, -1, -1):
-            x = ops.resize_linear(x, skips[i].shape[1:3], align_corners=False)
+            x = ops.resize_linear(x, space.global_spatial(skips[i]), align_corners=False)
             x = getattr(self, f"up{i}")((x, skips[i]))
         return x if self.last is None else self.last(x)
 
@@ -69,8 +70,10 @@ class UNet(nn.Module):
 
     @staticmethod
     def loss(logits: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean CE over all pixels (torch CrossEntropyLoss default)."""
-        loss = softmax_cross_entropy(logits, mask).mean()
+        """Mean CE over all pixels (torch CrossEntropyLoss default); under
+        spatial sharding this process's part of it, the sum of its CE over
+        the global pixel count (``space.mean``)."""
+        loss = space.mean(softmax_cross_entropy(logits, mask), logits)
         return loss, {"loss": loss, "kl": torch.zeros((), device=loss.device), "recon": loss}
 
     def sample(self, x: torch.Tensor, n: int) -> torch.Tensor:

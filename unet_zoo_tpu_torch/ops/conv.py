@@ -16,6 +16,15 @@
                   ``remat``, the twin of ``nn.remat``) or ``reversible``
                   (``ops/reversible.py``).
 
+Spatial sharding (``parallel/space.py``): while it is active, a 3x3 conv
+of a sharded input takes a 1-row halo (a 1-plane halo on axis 1 in 3D) and
+runs 'valid' in the height; a 1x1 conv needs none. A BN-free ``ConvSeq``
+runs its chain one stage at a time: a halo exchange, the fused chain's
+stage on the ``h + 2``-row tile (the kernel on CUDA, one launch), then a
+crop of the two edge rows, whose outputs read the zero padding of the tile
+and get no gradient. The zero halo at the global top and bottom is the
+'same' padding there, so every kept row is the unsharded chain's.
+
 ``ndim`` (2 or 3) is the number of spatial axes: the JAX modules infer it
 from their input, the port's need it to shape their weights. Parameters are
 float32 and OIHW or OIDHW (the ``nn.Conv2d``/``nn.Conv3d`` layouts) and are
@@ -29,6 +38,7 @@ added in f32 and the result is cast back to it (``conv_chain.conv2d_nhwc``,
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -40,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from unet_zoo_tpu_torch.ops import init as init_lib
 from unet_zoo_tpu_torch.ops.norm import BatchNorm, recomputing
 from unet_zoo_tpu_torch.ops.pallas.conv_chain import conv2d_nhwc, fused_conv_chain, pack_kernel
+from unet_zoo_tpu_torch.parallel import space as space_lib
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -65,8 +76,13 @@ def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, padd
     return (y.float() + bias.float()).to(x.dtype)
 
 
-def _recompute_contexts():
-    return contextlib.nullcontext(), recomputing()
+def _recompute_contexts(sp):
+    @contextlib.contextmanager
+    def rerun():
+        with recomputing(), space_lib.activate(sp):
+            yield
+
+    return contextlib.nullcontext(), rerun()
 
 
 def remat(fn, *args):
@@ -74,11 +90,15 @@ def remat(fn, *args):
     ``nn.remat``: autograd keeps the inputs and the backward runs ``fn``
     again in place of storing what is inside it. A train-mode BatchNorm in
     that re-run leaves its running statistics alone (``norm.recomputing``),
-    so they move once a step. Nothing inside draws random numbers, so the
-    RNG state is not saved. Without grad mode this is ``fn(*args)``."""
+    so they move once a step. The re-run enters the forward's spatial
+    sharding (``parallel/space.py``), on whatever thread autograd runs it,
+    so it repeats the forward's exchanges in the same order on every
+    process. Nothing inside draws random numbers, so the RNG state is not
+    saved. Without grad mode this is ``fn(*args)``."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, context_fn=_recompute_contexts)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=functools.partial(_recompute_contexts, space_lib.current()))
 
 
 def _concat(x: Tensors) -> torch.Tensor:
@@ -133,8 +153,12 @@ class Conv(nn.Module):
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
+        x = x.to(self.dtype or x.dtype)
         bias = _ZeroGrad.apply(self.bias) if self.grad_free_bias else self.bias
-        return self.conv_nd(x.to(self.dtype or x.dtype), self.weight, bias, self.padding)
+        sp = space_lib.current()
+        if self.padding and sp is not None and sp.is_sharded(x):
+            return self.conv_nd(sp.halo(x, self.padding), self.weight, bias, (0,) + (self.padding,) * (x.ndim - 3))
+        return self.conv_nd(x, self.weight, bias, self.padding)
 
 
 class ConvBNAct(nn.Module):
@@ -219,7 +243,13 @@ class ConvSeq(nn.Module):
         convs = [m.conv for m in self.children()]
         weights = [c.weight for c in convs]
         packed = self._packed_kernels(weights, x.dtype) if x.is_cuda else None
-        return fused_conv_chain(x, weights, [c.bias for c in convs], packed=packed)
+        sp = space_lib.current()
+        if sp is None or not sp.is_sharded(x):
+            return fused_conv_chain(x, weights, [c.bias for c in convs], packed=packed)
+        for j, c in enumerate(convs):
+            tile = sp.halo(x, 1)
+            x = fused_conv_chain(tile, [c.weight], [c.bias], packed=None if packed is None else [packed[j]])[:, 1:-1]
+        return x
 
 
 def conv_sequence(in_channels: int, features: int, depth: int, mode: str = "plain", rev_depth: Optional[int] = None,

@@ -16,10 +16,12 @@ rounding only (``tests/test_torch_ops.py`` holds them together).
 Cross-rank BatchNorm, the twin of the JAX module's ``axis_name``: where
 ``process_group`` is set (``parallel.mesh.sync_batch_norm``) a train-mode
 BatchNorm takes the JAX formula over the group's global batch: per channel
-the float32 sums of x and x^2 all-reduced over the group
-(``all_reduce_sum``, whose backward all-reduces the gradient too) and
-divided by the global count, ``var = max(E[x^2] - E[x]^2, 0)``, and the
-running variance's unbiased count ``n * world``. The group is an attribute,
+the float32 sums of x and x^2 all-reduced over the group and divided by the
+global count, ``var = max(E[x^2] - E[x]^2, 0)`` (``_SyncedBatchNorm``,
+whose backward all-reduces its two sums of the gradient too), and the
+running variance's unbiased count ``n * world`` (under spatial sharding,
+``parallel/space.py``, the count of distinct values: a replicated level's
+copies are counted once). The group is an attribute,
 not a context, because on a card the backward (and a recompute inside it)
 runs on autograd's device thread.
 
@@ -41,6 +43,8 @@ import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unet_zoo_tpu_torch.parallel import space as space_lib
+
 _state = threading.local()
 
 
@@ -58,38 +62,69 @@ def is_recomputing() -> bool:
     return getattr(_state, "depth", 0) > 0
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """The sum of ``t`` over ``group``; the backward is the sum of the
-    gradients over the group, since every rank's loss reads the sum."""
-
-    @staticmethod
-    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
-        out = t.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+def group_counts(y: torch.Tensor, group, sp=None) -> Tuple[int, int]:
+    """Per channel of channels-last ``y``, the values summed over ``group``
+    (local count x world size: what the means divide by) and the distinct
+    ones among them (what the unbiased variance reads). Under spatial
+    sharding (``sp``, with the whole mesh's ``group``) a replicated level's
+    ``sp.size`` copies scale the sums and the first count alike, and the
+    second counts them once."""
+    n = y.numel() // y.shape[-1] * dist.get_world_size(group)
+    return n, (n // sp.size if sp is not None and not sp.is_sharded(y) else n)
 
 
-def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
-    """The differentiable sum of ``t`` over the process ``group``."""
-    return _AllReduceSum.apply(t, group)
-
-
-def group_moments(y: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def group_moments(y: torch.Tensor, group, sp=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The float32 (or float64) per-channel ``mean`` and ``max(E[y^2] -
     E[y]^2, 0)`` of channels-last ``y`` over every axis but the last, taken
     over the global batch of ``group`` (one all-reduce of both sums), and
-    the global count a channel."""
+    the count of distinct values a channel (``group_counts``)."""
     axes = tuple(range(y.ndim - 1))
-    n = y.numel() // y.shape[-1] * dist.get_world_size(group)
-    mean, mean_sq = all_reduce_sum(torch.stack([y.sum(axes), y.square().sum(axes)]), group) / n
-    return mean, torch.clamp_min(mean_sq - mean.square(), 0.0), n
+    n, distinct = group_counts(y, group, sp)
+    mean, mean_sq = space_lib.all_reduce_sum(torch.stack([y.sum(axes), y.square().sum(axes)]), group) / n
+    return mean, torch.clamp_min(mean_sq - mean.square(), 0.0), distinct
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over ``group`` by the JAX formula:
+    ``apply(x, weight, bias, group, eps, count)`` returns (y, mean, var),
+    the statistics taken over ``count`` values a channel (one all-reduce of
+    the float32 sums of x and x^2; ``var = max(E[x^2] - E[x]^2, 0)``). It
+    keeps only x, in its own dtype, and the per-channel statistics for the
+    backward, as ``F.batch_norm`` does (autograd of the formula would keep
+    three more tensors of x's size), and the backward's two per-channel
+    sums take one all-reduce: ``dx = w s (dy - mean(dy) - x_hat mean(dy
+    x_hat))`` with the group's means, the x_hat term dropped where the
+    variance was clamped to 0; the weight's and the bias's gradients are
+    this process's part."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, group, eps: float, count: int):
+        xf = x.float()
+        axes = tuple(range(x.ndim - 1))
+        sums = torch.stack([xf.sum(axes), xf.square().sum(axes)])
+        dist.all_reduce(sums, group=group)
+        mean, mean_sq = sums / count
+        raw = mean_sq - mean.square()
+        var = torch.clamp_min(raw, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean) * invstd * weight + bias
+        ctx.save_for_backward(x, mean, invstd, weight, raw > 0)
+        ctx.group, ctx.count = group, count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor, *_):
+        x, mean, invstd, weight, unclamped = ctx.saved_tensors
+        axes = tuple(range(x.ndim - 1))
+        gy = gy.float()
+        x_hat = (x.float() - mean) * invstd
+        local = torch.stack([gy.sum(axes), (gy * x_hat).sum(axes)])
+        g_bias, g_weight = local.clone()
+        dist.all_reduce(local, group=ctx.group)
+        mean_gy, mean_gy_xhat = local / ctx.count
+        gx = (gy - mean_gy - x_hat * (mean_gy_xhat * unclamped)) * (invstd * weight)
+        return gx.to(x.dtype), g_weight, g_bias, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -120,13 +155,14 @@ class BatchNorm(nn.Module):
         return y.movedim(1, -1).to(x.dtype)
 
     def _synced(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the process group's global batch."""
-        xf = x.float()
-        mean, var, n = group_moments(xf, self.process_group)
+        """Train mode over the process group's global batch
+        (``_SyncedBatchNorm``); under spatial sharding the unbiased
+        variance counts a replicated level's values once."""
+        count, n = group_counts(x, self.process_group, space_lib.current())
+        y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias, self.process_group, self.eps, count)
         if not is_recomputing():
             m = self.momentum
             with torch.no_grad():
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1 - m).add_(var * (n / max(n - 1, 1)), alpha=m)
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
-        return y.to(x.dtype)
+        return y

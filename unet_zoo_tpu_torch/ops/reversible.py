@@ -24,7 +24,11 @@ eval mode it runs the plain chain on the running statistics. Where a
 sequence's ``process_group`` is set (``parallel.mesh.sync_batch_norm``),
 the train-mode statistics are those of the group's global batch
 (``norm.group_moments``), in the forward and in the backward's re-runs
-alike, so every rank reconstructs with the same statistics.
+alike, so every rank reconstructs with the same statistics. Under spatial
+sharding (``parallel/space.py``) f and g take a 1-row halo of a sharded
+input; ``ReversibleChain`` holds the forward's ``Space`` and its backward's
+reconstruction runs the exchanges again with it, on whatever thread
+autograd runs it.
 
 The JAX package packs the halves to rank 3 and scans over the blocks to fix
 a TPU's lane padding and scheduling (``_pack``, ``lax.scan``); a GPU needs
@@ -43,6 +47,7 @@ from torch.autograd.function import once_differentiable
 from unet_zoo_tpu_torch.ops import init as init_lib
 from unet_zoo_tpu_torch.ops.conv import ConvBNAct, Tensors, _concat, _ZeroGrad, remat
 from unet_zoo_tpu_torch.ops.norm import group_moments
+from unet_zoo_tpu_torch.parallel import space as space_lib
 
 BN_EPS = 1e-3
 MOMENTUM = 0.01  # torch style: the weight of the new batch statistic
@@ -52,7 +57,7 @@ Stats = Tuple[torch.Tensor, torch.Tensor]  # mean, variance
 
 
 def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-        ema: Optional[Stats] = None, group=None) -> Tuple[torch.Tensor, Stats]:
+        ema: Optional[Stats] = None, group=None, sp=None) -> Tuple[torch.Tensor, Stats]:
     """The coupling function on NHWC or NDHWC ``x``: conv3x3(x3) with operands in
     ``x.dtype``, the bias added in float32 with an exact zero gradient (the
     JAX package stops it; Adam still decays it), BatchNorm in float32 (float64
@@ -60,13 +65,18 @@ def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.
     mode (``ema`` None) it normalises with the batch's mean and
     ``max(E[y^2] - E[y]^2, 0)`` and returns (out, (mean, unbiased
     variance)); else it normalises with ``ema`` and returns it. With a
-    process ``group`` the train-mode statistics are the group's. It touches
-    no buffer, so the backward can run it again."""
+    process ``group`` the train-mode statistics are the group's; with a
+    ``Space`` ``sp`` a sharded x takes a 1-row halo. It touches no buffer,
+    so the backward can run it again."""
     conv = F.conv2d if x.ndim == 4 else F.conv3d
-    y = conv(x.movedim(-1, 1), kernel.to(x.dtype), padding=1).movedim(1, -1)
+    if sp is not None and sp.is_sharded(x):
+        y = conv(sp.halo(x, 1).movedim(-1, 1), kernel.to(x.dtype), padding=(0,) + (1,) * (x.ndim - 3))
+    else:
+        y = conv(x.movedim(-1, 1), kernel.to(x.dtype), padding=1)
+    y = y.movedim(1, -1)
     yf = y.to(torch.promote_types(y.dtype, torch.float32)) + _ZeroGrad.apply(bias)
     if ema is None and group is not None:
-        mean, var, n = group_moments(yf, group)
+        mean, var, n = group_moments(yf, group, sp)
         stats = (mean, var * (n / max(n - 1, 1)))
     elif ema is None:
         axes = tuple(range(yf.ndim - 1))
@@ -82,30 +92,32 @@ def _fg(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, scale: torch.
 
 def coupling_chain(x: torch.Tensor, blocks: Sequence[Tuple[FG, FG]],
                    ema: Optional[Sequence[Tuple[Stats, Stats]]] = None,
-                   group=None) -> Tuple[torch.Tensor, List[Tuple[Stats, Stats]]]:
+                   group=None, sp=None) -> Tuple[torch.Tensor, List[Tuple[Stats, Stats]]]:
     """The coupling blocks in order, differentiable by autograd (which then
     stores every activation): (y, each block's (f, g) statistics). ``ema``
     gives each block's running statistics for eval mode; ``group`` the
-    process group of train-mode statistics."""
+    process group of train-mode statistics; ``sp`` the ``Space`` of a
+    sharded x."""
     c = x.shape[-1] // 2
     x1, x2 = x[..., :c], x[..., c:]
     stats = []
     for i, (pf, pg) in enumerate(blocks):
-        f_out, f_stats = _fg(x2, *pf, ema=ema[i][0] if ema else None, group=group)
+        f_out, f_stats = _fg(x2, *pf, ema=ema[i][0] if ema else None, group=group, sp=sp)
         y1 = x1 + f_out
-        g_out, g_stats = _fg(y1, *pg, ema=ema[i][1] if ema else None, group=group)
+        g_out, g_stats = _fg(y1, *pg, ema=ema[i][1] if ema else None, group=group, sp=sp)
         x1, x2 = y1, x2 + g_out
         stats.append((f_stats, g_stats))
     return torch.cat([x1, x2], dim=-1), stats
 
 
-def _vjp(x: torch.Tensor, p: FG, cotangent: torch.Tensor, group=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+def _vjp(x: torch.Tensor, p: FG, cotangent: torch.Tensor, group=None,
+         sp=None) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """A coupling function at (x, p), run again in train mode: (its output,
     the cotangent's vector-Jacobian product for x and each of p)."""
     with torch.enable_grad():
         x = x.detach().requires_grad_()
         p = [t.detach().requires_grad_() for t in p]
-        out, _ = _fg(x, *p, group=group)
+        out, _ = _fg(x, *p, group=group, sp=sp)
         grads = torch.autograd.grad(out, (x, *p), cotangent)
     return out.detach(), grads
 
@@ -131,8 +143,9 @@ class ReversibleChain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group, *params: torch.Tensor):
-        y, stats = coupling_chain(x, _blocks(params), group=group)
-        ctx.group = group
+        sp = space_lib.current()  # the backward's thread may not see the context: ctx holds it
+        y, stats = coupling_chain(x, _blocks(params), group=group, sp=sp)
+        ctx.group, ctx.sp = group, sp
         flat = [t for block in stats for pair in block for t in pair]
         ctx.mark_non_differentiable(*flat)
         ctx.set_materialize_grads(False)
@@ -150,10 +163,10 @@ class ReversibleChain(torch.autograd.Function):
         g1, g2 = grad_y[..., :c], grad_y[..., c:]
         grads: List[torch.Tensor] = []
         for pf, pg in reversed(_blocks(params)):
-            g_out, (dy1, *dpg) = _vjp(y1, pg, g2, ctx.group)
+            g_out, (dy1, *dpg) = _vjp(y1, pg, g2, ctx.group, ctx.sp)
             x2 = y2 - g_out
             g1 = g1 + dy1
-            f_out, (dx2, *dpf) = _vjp(x2, pf, g1, ctx.group)
+            f_out, (dx2, *dpf) = _vjp(x2, pf, g1, ctx.group, ctx.sp)
             y1, y2 = y1 - f_out, x2
             g2 = g2 + dx2
             grads[:0] = [*dpf, *dpg]
@@ -223,11 +236,12 @@ class ReversibleSequence(nn.Module):
         if not self.training:
             return coupling_chain(x, blocks, self.running_stats())[0]
         params = [t for block in blocks for p in block for t in p]
+        sp = space_lib.current()
         if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
             y, *flat = ReversibleChain.apply(x, self.process_group, *params)
         else:
             with torch.no_grad():
-                y, stats = coupling_chain(x, blocks, group=self.process_group)
+                y, stats = coupling_chain(x, blocks, group=self.process_group, sp=sp)
             flat = [t for block in stats for pair in block for t in pair]
         running = [t for block in self.running_stats() for pair in block for t in pair]
         with torch.no_grad():

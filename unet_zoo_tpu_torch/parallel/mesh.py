@@ -17,8 +17,16 @@ The group is gloo on the CPU and NCCL on the cards. Ranks that share one
 card must ask for gloo (``init_distributed(backend="gloo")``): NCCL refuses
 two ranks on one card, and gloo all-reduces CUDA tensors through host
 copies. A process that trains alone holds ``local_mesh``, where every
-collective returns at once. The "space" axis is ``parallel/space.py``: only
-space 1 is built.
+collective returns at once.
+
+The "space" axis (``parallel/space.py``): at space K > 1 the world is data
+x K processes, and processes ``d*K ... d*K+K-1`` form data group ``d``,
+which shares one batch and splits its height over them (``space_group``,
+one ``dist.new_group`` each, created by every process in the same order).
+Each process's gradient is then its rows' part of its data group's: the
+gradients are summed over the world and divided by ``data``, a sum over
+the space group and a mean over the data axis (``all_reduce_grads_``,
+``mean_over_processes``).
 """
 
 from __future__ import annotations
@@ -35,7 +43,6 @@ import torch.distributed as dist
 from unet_zoo_tpu_torch.models.registry import resolve_device
 from unet_zoo_tpu_torch.ops.norm import BatchNorm
 from unet_zoo_tpu_torch.ops.reversible import ReversibleSequence
-from unet_zoo_tpu_torch.parallel.space import check_space
 
 log = logging.getLogger(__name__)
 
@@ -48,8 +55,9 @@ TIMEOUT = datetime.timedelta(seconds=600)
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place on a ("data", "space") mesh: ``rank`` of
-    ``world`` = data x space processes, its ``device`` and the process
-    ``group`` (None in one process without ``init_distributed``)."""
+    ``world`` = data x space processes, its ``device``, the process
+    ``group`` (None in one process without ``init_distributed``) and, at
+    space > 1, ``space_group``, the processes of its data group."""
 
     data: int
     space: int
@@ -57,6 +65,7 @@ class Mesh:
     world: int
     group: Optional[object]
     device: torch.device
+    space_group: Optional[object] = None
 
 
 def init_distributed(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
@@ -96,10 +105,12 @@ def make_mesh(data: Optional[int] = None, space: int = 1, device=None) -> Mesh:
     ``data`` x ``space`` must be the world size (``data`` defaults to what
     is left of it). The device is ``device``, by default the card
     ``cuda:{rank % device_count}``, which becomes the current one; "cpu"
-    where asked for. Raises for space > 1 (``parallel/space.py``)."""
-    check_space(space)
+    where asked for. At space > 1 every process creates every data group's
+    space subgroup, in order, and keeps its own."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = process_index()
+    if space < 1 or world % space:
+        raise ValueError(f"a space axis of {space} does not divide the {world} processes of this run")
     data = world // space if data is None else data
     if data * space != world:
         raise ValueError(f"a mesh of data={data} x space={space} needs {data * space} processes, one a card; "
@@ -109,7 +120,16 @@ def make_mesh(data: Optional[int] = None, space: int = 1, device=None) -> Mesh:
         if dev.index is None:
             dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-    return Mesh(data, space, rank, world, dist.group.WORLD if dist.is_initialized() else None, dev)
+    space_group = None
+    if space > 1:
+        for d in range(data):
+            group = dist.new_group(list(range(d * space, (d + 1) * space)), timeout=TIMEOUT)
+            if d == rank // space:
+                space_group = group
+        # one collective of the whole subgroup first: NCCL then builds its
+        # communicator before the halos' point-to-point exchanges use it
+        dist.all_reduce(torch.zeros(1, device=dev), group=space_group)
+    return Mesh(data, space, rank, world, dist.group.WORLD if dist.is_initialized() else None, dev, space_group)
 
 
 def local_mesh(device=None) -> Mesh:
@@ -119,9 +139,11 @@ def local_mesh(device=None) -> Mesh:
 
 
 def batch_spec(mesh: Mesh, batch: int) -> slice:
-    """The rows of a global batch of ``batch`` that this process holds.
-    Raises where the batch does not split evenly over the data axis (the
-    JAX package's sharded step fails there too)."""
+    """The rows of a global batch of ``batch`` that this process holds (its
+    data group's). Raises where the batch does not split evenly over the
+    data axis (the JAX package's sharded step fails there too). A data
+    group's processes hold the same rows: each keeps its share of their
+    height under ``space_sharding`` (``Space.shard``)."""
     if batch % mesh.data:
         raise ValueError(f"a global batch of {batch} does not split evenly over {mesh.data} data-parallel ranks")
     rows = batch // mesh.data
@@ -135,7 +157,9 @@ shard_label_spec = batch_spec
 
 
 def shard_batch(mesh: Mesh, x):
-    """This process's rows of the global batch ``x`` (an array or a tensor)."""
+    """This process's rows of the global batch ``x`` (an array or a tensor):
+    its data group's images, whole (the ``Trainer`` warps them before it
+    keeps its rows of their height)."""
     return x[batch_spec(mesh, len(x))]
 
 
@@ -161,18 +185,21 @@ def barrier(name: str = "") -> None:
 
 
 def all_reduce_mean_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """``t`` becomes its mean over the mesh's processes, in place: the sum
-    over the group, divided by the world size. At world 1, ``t`` as it is."""
+    """``t`` becomes its sum over each data group's space processes and
+    its mean over the data axis, in place: the sum over the world, divided
+    by ``data`` (each process holds its rows' part of its data group's
+    value). At world 1, ``t`` as it is."""
     if mesh.world == 1:
         return t
     dist.all_reduce(t, group=mesh.group)
-    return t.div_(mesh.world)
+    return t.div_(mesh.data)
 
 
 def all_reduce_grads_(mesh: Mesh, params: Iterable[torch.Tensor]) -> None:
-    """Every gradient of ``params`` becomes its mean over the mesh's
-    processes: one all-reduce of them all in one flat buffer. At world 1
-    nothing is copied."""
+    """Every gradient of ``params`` becomes the global batch's (the sum
+    over the space axis, the mean over the data axis, ``all_reduce_mean_``):
+    one all-reduce of them all in one flat buffer. At world 1 nothing is
+    copied."""
     if mesh.world == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -182,8 +209,9 @@ def all_reduce_grads_(mesh: Mesh, params: Iterable[torch.Tensor]) -> None:
 
 
 def mean_over_processes(mesh: Mesh, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The detached scalars ``values``, each its mean over the mesh's
-    processes (one all-reduce, in float32). At world 1, ``values`` detached."""
+    """The detached scalars ``values`` (each process's part of its data
+    group's), each the global batch's (one all-reduce in float32,
+    ``all_reduce_mean_``). At world 1, ``values`` detached."""
     values = {k: v.detach() for k, v in values.items()}
     if mesh.world == 1:
         return values
@@ -209,8 +237,10 @@ def sync_batch_norm(module: torch.nn.Module, group) -> torch.nn.Module:
     """Sets ``group`` on every ``BatchNorm`` and ``ReversibleSequence`` in
     ``module`` (the idiom of ``nn.SyncBatchNorm.convert_sync_batchnorm``):
     in train mode their batch statistics are then those of the group's
-    global batch, the twin of the JAX BatchNorm's ``axis_name``. Returns
-    ``module``."""
+    global batch, the twin of the JAX BatchNorm's ``axis_name``. With the
+    whole mesh's group at space > 1 the sums and the count take every
+    process's rows: a replicated level's ``space`` copies scale both alike.
+    Returns ``module``."""
     for m in module.modules():
         if isinstance(m, (BatchNorm, ReversibleSequence)):
             m.process_group = group

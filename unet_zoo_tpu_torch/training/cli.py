@@ -28,8 +28,10 @@ the CPU): so with no flags the run is one process on one card, and
 batch (``batch_size``) must split evenly over them. Process 0 alone writes
 the log file, the provenance, the metrics and the checkpoints; in ``eval``
 it runs the test sweep while the others wait at a barrier. The space axis
-(``--space``, ``space=K``) above 1 is not built (``parallel/space.py``) and
-fails with a message.
+(``--space K``, ``--mesh data=N,space=K``) splits each data group's image
+height over K processes (``parallel/space.py``): N x K processes in all,
+started as above with ``--num-processes N*K``; processes ``d*K`` to
+``d*K+K-1`` form data group ``d``.
 """
 
 from __future__ import annotations
@@ -48,7 +50,6 @@ import torch.distributed as dist
 
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig, load_experiment
 from unet_zoo_tpu_torch.parallel.mesh import Mesh, barrier, init_distributed, make_mesh, process_index
-from unet_zoo_tpu_torch.parallel.space import check_space
 from unet_zoo_tpu_torch.training.trainer import Trainer
 
 
@@ -101,10 +102,10 @@ def _common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--log-root", default=None)
     p.add_argument("--device", default="cuda", help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="data-parallel mesh 'data=N[,space=K]': N processes, one a card, each started with "
-                        "--coordinator, --num-processes N and its --process-id; 'none' trains each process alone")
+                   help="mesh 'data=N[,space=K]': N x K processes, one a card, each started with --coordinator, "
+                        "--num-processes N*K and its --process-id; 'none' trains each process alone")
     p.add_argument("--space", type=int, default=None, metavar="K",
-                   help="shard the image height K-ways (not built above 1)")
+                   help="split each data group's image height over K processes")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="process 0's address, the same in every process of a multi-process run")
     p.add_argument("--num-processes", type=int, default=None)
@@ -115,9 +116,9 @@ def make_cli_mesh(args, batch_size: int) -> Optional[Mesh]:
     """The mesh the flags ask for, or None for one process alone: joins the
     process group where ``--coordinator`` or ``--num-processes`` is given,
     then parses ``--mesh``/``--space`` as the JAX CLI does. Fails with a
-    message (``SystemExit``) for a bad component, a space axis above 1, a
-    data axis that is not the number of processes, or a global batch that
-    does not split over it."""
+    message (``SystemExit``) for a bad component, a mesh (data x space) that
+    is not the number of processes, or a global batch that does not split
+    over the data axis."""
     if args.coordinator is not None or args.num_processes is not None:
         init_distributed(args.coordinator, args.num_processes, args.process_id, device=args.device)
     if args.mesh == "none":
@@ -135,19 +136,21 @@ def make_cli_mesh(args, batch_size: int) -> Optional[Mesh]:
         if space is not None and space != args.space:
             raise SystemExit("--space contradicts --mesh's space=")
         space = args.space
-    try:
-        check_space(space or 1)
-    except NotImplementedError as e:
-        raise SystemExit(f"--mesh/--space: {e}") from None
+    space = space or 1
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if data is not None and data != world:
-        raise SystemExit(f"--mesh data={data} takes {data} processes, one a card, each started with --coordinator "
-                         f"HOST:PORT --num-processes {data} --process-id I; this run has {world}")
+    if data is None and space > 1:
+        data = max(world // space, 1)
+    if data is not None and data * space != world:
+        spec = f"data={data}" + (f",space={space}" if space > 1 else "")
+        raise SystemExit(f"--mesh {spec} takes {data * space} processes, one a card, each started with "
+                         f"--coordinator HOST:PORT --num-processes {data * space} --process-id I; this run has "
+                         f"{world}")
     if data is None and world == 1:
         return None
-    if batch_size % world:
-        raise SystemExit(f"the global batch {batch_size} does not split evenly over {world} data-parallel processes")
-    return make_mesh(world, device=args.device)
+    data = world // space
+    if batch_size % data:
+        raise SystemExit(f"the global batch {batch_size} does not split evenly over {data} data-parallel processes")
+    return make_mesh(data, space=space, device=args.device)
 
 
 def _setup(args) -> tuple:

@@ -54,6 +54,17 @@ collective returns at once, and the step is bit for bit the one in which
 the model draws its own z noise. Process 0 alone validates, logs and writes checkpoints and
 metrics; evaluation runs every model in eval mode and issues no collective.
 
+Spatial sharding (a mesh with space > 1, ``parallel/space.py``), the twin of
+the JAX ``Trainer``'s ``space_sharding`` around its step: the augmentation
+and the forward run inside ``space_sharding(mesh)``. Each process of a data
+group warps the group's whole images with the same draws, then keeps its
+rows of the height (the warp's 4-tap gather reads across the rows'
+edges), and decodes its rows of each level of the global z noise; the
+convs exchange halos, and every loss term is this process's part of its
+data group's. The gradients are then summed over the space axis and
+averaged over the data axis. The backward runs outside the context:
+whatever it runs again holds the forward's ``Space``.
+
 Evaluation draws its z noise from a device generator seeded from (seed,
 step, salt, image index) (``eval_generator``), never from the train
 state's generator, as the JAX package derives each image's key with
@@ -88,6 +99,7 @@ from unet_zoo_tpu_torch.data.augment import (
 from unet_zoo_tpu_torch.experiments.config import ExperimentConfig, SystemConfig
 from unet_zoo_tpu_torch.models.registry import get_model
 from unet_zoo_tpu_torch.ops.conv import chain_route
+from unet_zoo_tpu_torch.parallel import space as space_lib
 from unet_zoo_tpu_torch.parallel.mesh import (
     Mesh,
     all_reduce_grads_,
@@ -278,11 +290,17 @@ class Trainer:
         """Move the batch to the device and warp it with ``aug_params``
         (``AugmentParams``, or ``Augment3DParams`` for a 3D experiment), or
         with draws from the state's generator. x and y are this process's
-        rows, and the draws, given or drawn, are the global batch's, of
-        which it keeps its rows (all of them in one process). With
-        ``augment_on="host"`` the batch arrives augmented (``train``'s
-        ``PrefetchingLoader``) and is only moved."""
-        x, y = x.to(self.device), y.to(self.device)
+        data group's images, whole, and the draws, given or drawn, are the
+        global batch's, of which it keeps its rows (all of them in one
+        process). With ``augment_on="host"`` the batch arrives augmented
+        (``train``'s ``PrefetchingLoader``) and is only moved. Under spatial
+        sharding it returns this process's rows of the height of the
+        augmented images and labels."""
+        x, y = self._warp(x.to(self.device), y.to(self.device), aug_params)
+        sp = space_lib.current()
+        return (x, y) if sp is None else sp.shard(x, y)
+
+    def _warp(self, x: torch.Tensor, y: torch.Tensor, aug_params) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.cfg.augment_on == "host":
             return x, y
         total, rows = self._global(x.shape[0])
@@ -307,15 +325,20 @@ class Trainer:
         PHiSeg one tensor a latent level, for ProbUNet one (B, latent_dim)
         tensor. The noise, given or drawn from the state's generator
         (``model.train_noise``, in the forward's own order), is the global
-        batch's, and this process decodes its rows."""
+        batch's, and this process decodes its rows: of the batch, and under
+        spatial sharding of each level's height where it is sharded."""
         model = self.state.model
         model.train()
         if self.cfg.model not in LATENT_FAMILIES:
             return model.loss(model(x), y)
         total, rows = self._global(x.shape[0])
         if z_eps is None:
-            z_eps = model.train_noise(total, x.shape[1:-1], self.state.generator, self.device)
-        z_eps = [e[rows] for e in z_eps] if isinstance(z_eps, (list, tuple)) else z_eps[rows]
+            z_eps = model.train_noise(total, space_lib.global_spatial(x), self.state.generator, self.device)
+        sp = space_lib.current()
+        if isinstance(z_eps, (list, tuple)):
+            z_eps = [e[rows] if sp is None else sp.shard(e[rows]) for e in z_eps]
+        else:
+            z_eps = z_eps[rows]
         return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
 
     def backward(self, loss: torch.Tensor) -> None:
@@ -347,10 +370,12 @@ class Trainer:
         ``aug_params`` (``AugmentParams``, ``Augment3DParams``) and ``z_eps``
         (ProbUNet, PHiSeg) replace the step's own draws (tests inject the JAX
         package's). x and y are this process's rows of the global batch,
-        and ``aug_params`` and ``z_eps`` the global batch's. Returns the
-        loss's aux dict as device tensors, the global batch's means."""
-        x, y = self.augment(x, y, aug_params)
-        loss, aux = self.forward_loss(x, y, z_eps)
+        and ``aug_params`` and ``z_eps`` the global batch's; under spatial
+        sharding x and y hold the whole height. Returns the loss's aux dict
+        as device tensors, the global batch's means."""
+        with space_lib.space_sharding(self.mesh):
+            x, y = self.augment(x, y, aug_params)
+            loss, aux = self.forward_loss(x, y, z_eps)
         self.backward(loss)
         aux = mean_over_processes(self.mesh, aux)
         self._update(aux["loss"])
