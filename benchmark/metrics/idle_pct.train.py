@@ -1,0 +1,9 @@
+"""Share of the device-only traced window (``Trainer.train``'s steps, timed
+by the host's clock) in which no kernel, copy or set ran on the device."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train":
+        return None
+    t = ctx["light"]
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
