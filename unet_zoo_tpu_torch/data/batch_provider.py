@@ -27,6 +27,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 from scipy.ndimage import zoom
 
+from unet_zoo_tpu_torch.utils.profiling import span
+
 
 def resize_batch(imgs: np.ndarray, target_size: Sequence[int]) -> np.ndarray:
     """Nearest-neighbour resize of a batch's spatial axes to ``target_size``."""
@@ -73,12 +75,14 @@ class BatchProvider:
         self.rng = rng if rng is not None else np.random.default_rng()
 
     def next_batch(self, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
-        """One random batch, sampled without replacement across calls."""
-        if len(self.unused_indices) < batch_size:
-            self.unused_indices = self.indices
-        batch_indices = self.rng.choice(self.unused_indices, batch_size, replace=False)
-        self.unused_indices = np.setdiff1d(self.unused_indices, batch_indices)
-        return self._load(np.sort(batch_indices))
+        """One random batch, sampled without replacement across calls; the
+        span ``uz.data.next_batch`` in a profile."""
+        with span("data.next_batch"):
+            if len(self.unused_indices) < batch_size:
+                self.unused_indices = self.indices
+            batch_indices = self.rng.choice(self.unused_indices, batch_size, replace=False)
+            self.unused_indices = np.setdiff1d(self.unused_indices, batch_indices)
+            return self._load(np.sort(batch_indices))
 
     def iterate_batches(self, batch_size: int, shuffle: bool = True) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         """One epoch in batches of ``batch_size``, the last one ragged."""

@@ -27,6 +27,12 @@ and which z the likelihood decodes (the posterior's in training, else the
 prior's). Every BN sequence runs as library ops: the JAX package's BN
 sequences never reach its Pallas kernel either.
 
+In a ``torch.profiler`` profile each net's work is a span
+(``utils.profiling.span``): ``uz.phiseg.posterior``, ``uz.phiseg.prior``
+(in ``sample`` its trunk, then the latent path of each chunk) and
+``uz.phiseg.likelihood`` (with the logits' accumulation in ``sample``);
+``loss`` is ``uz.phiseg.loss``.
+
 Randomness: every z noise can be passed in (``post_eps``/``prior_eps`` of
 ``forward``, ``eps`` of ``sample``), one tensor per latent level; otherwise
 it is drawn from ``generator``, by default the model's own device generator
@@ -65,6 +71,7 @@ from unet_zoo_tpu_torch.models.blocks import PhiDownBlock, seq_name
 from unet_zoo_tpu_torch.models.prob_unet import kl_two_gauss_diag
 from unet_zoo_tpu_torch.models.unet import softmax_cross_entropy
 from unet_zoo_tpu_torch.parallel import space
+from unet_zoo_tpu_torch.utils.profiling import span
 
 Levels = List[torch.Tensor]
 
@@ -297,12 +304,15 @@ class PHiSeg(nn.Module):
         generator = generator or self.generator
         out: Dict[str, Levels] = {}
         if mask is not None:
-            out["post_z"], out["post_mu"], out["post_sigma"] = self.posterior(
-                x, mask, eps=post_eps, generator=generator)
+            with span("phiseg.posterior"):
+                out["post_z"], out["post_mu"], out["post_sigma"] = self.posterior(
+                    x, mask, eps=post_eps, generator=generator)
         teacher = out["post_z"] if self.training and mask is not None else None
-        out["prior_z"], out["prior_mu"], out["prior_sigma"] = self.prior(
-            x, None, teacher, eps=prior_eps, generator=generator)
-        out["s_list"] = self.likelihood(out["post_z"] if teacher is not None else out["prior_z"])
+        with span("phiseg.prior"):
+            out["prior_z"], out["prior_mu"], out["prior_sigma"] = self.prior(
+                x, None, teacher, eps=prior_eps, generator=generator)
+        with span("phiseg.likelihood"):
+            out["s_list"] = self.likelihood(out["post_z"] if teacher is not None else out["prior_z"])
         return out
 
     def train_noise(self, batch: int, spatial: Sequence[int], generator: torch.Generator, device) -> Levels:
@@ -334,7 +344,8 @@ class PHiSeg(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            skips, bottom = self.prior.trunk(x)
+            with span("phiseg.prior"):
+                skips, bottom = self.prior.trunk(x)
             batch, L = x.shape[0], self.latent_levels
             skips = skips[len(skips) - (L - 1):]  # the latent path reads the coarsest L - 1 skips only
             if eps is None:
@@ -350,8 +361,10 @@ class PHiSeg(nn.Module):
                 c = min(chunk, n - s0)
                 fold = [t.repeat(c, *([1] * (t.ndim - 1))) for t in (*skips, bottom)]
                 rows = slice(s0 * batch, (s0 + c) * batch)
-                z, _, _ = self.prior.zpath(fold[:-1], fold[-1], eps=[e[rows] for e in eps])
-                logits.append(self.accumulate_output(self.likelihood(z)))
+                with span("phiseg.prior"):
+                    z, _, _ = self.prior.zpath(fold[:-1], fold[-1], eps=[e[rows] for e in eps])
+                with span("phiseg.likelihood"):
+                    logits.append(self.accumulate_output(self.likelihood(z)))
             logits = torch.cat(logits)
         finally:
             self.train(was_training)
@@ -360,10 +373,11 @@ class PHiSeg(nn.Module):
     # the loss (reference phiseg.py:455-513)
 
     def loss(self, out: Dict[str, Levels], mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        kl = self.hierarchical_kl(out["post_mu"], out["post_sigma"], out["prior_mu"], out["prior_sigma"])
-        recon = self.residual_multinoulli(out["s_list"], mask)
-        loss = kl + recon
-        return loss, {"loss": loss, "kl": kl, "recon": recon}
+        with span("phiseg.loss"):
+            kl = self.hierarchical_kl(out["post_mu"], out["post_sigma"], out["prior_mu"], out["prior_sigma"])
+            recon = self.residual_multinoulli(out["s_list"], mask)
+            loss = kl + recon
+            return loss, {"loss": loss, "kl": kl, "recon": recon}
 
     def hierarchical_kl(self, post_mu: Levels, post_sigma: Levels, prior_mu: Levels,
                         prior_sigma: Levels) -> torch.Tensor:

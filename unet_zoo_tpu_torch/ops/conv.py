@@ -51,10 +51,18 @@ from unet_zoo_tpu_torch.ops import init as init_lib
 from unet_zoo_tpu_torch.ops.norm import BatchNorm, recomputing
 from unet_zoo_tpu_torch.ops.pallas.conv_chain import conv2d_nhwc, fused_conv_chain, pack_kernel
 from unet_zoo_tpu_torch.parallel import space as space_lib
+from unet_zoo_tpu_torch.utils import profiling
 
 Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 MEMORY_MODES = ("plain", "remat", "reversible")
+
+
+def conv_span(x: torch.Tensor, weight: torch.Tensor) -> str:
+    """A library convolution's span: ``conv.<in>-<out>.k<k>.<spatial>``, the
+    input and output channels, the kernel size and the input's spatial
+    shape (``HxW`` or ``DxHxW``)."""
+    return "conv.%d-%d.k%d.%s" % (x.shape[-1], weight.shape[0], weight.shape[2], "x".join(map(str, x.shape[1:-1])))
 
 
 def chain_route(dtype: torch.dtype, device) -> str:
@@ -130,7 +138,9 @@ class Conv(nn.Module):
     may be a tuple of tensors, concatenated along channels in order (the
     JAX package splits the kernel instead; the result is the same).
     ``grad_free_bias`` gives the bias an exact zero gradient (``_ZeroGrad``),
-    for a conv that BatchNorm follows.
+    for a conv that BatchNorm follows. Each call is the span
+    ``uz.conv.<in>-<out>.k<k>.<spatial>`` (``conv_span``) in a profile: the
+    library convolution, its halo exchange and its bias.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -153,12 +163,14 @@ class Conv(nn.Module):
 
     def forward(self, x: Tensors) -> torch.Tensor:
         x = _concat(x)
-        x = x.to(self.dtype or x.dtype)
-        bias = _ZeroGrad.apply(self.bias) if self.grad_free_bias else self.bias
-        sp = space_lib.current()
-        if self.padding and sp is not None and sp.is_sharded(x):
-            return self.conv_nd(sp.halo(x, self.padding), self.weight, bias, (0,) + (self.padding,) * (x.ndim - 3))
-        return self.conv_nd(x, self.weight, bias, self.padding)
+        with profiling.span(conv_span, x, self.weight):
+            x = x.to(self.dtype or x.dtype)
+            bias = _ZeroGrad.apply(self.bias) if self.grad_free_bias else self.bias
+            sp = space_lib.current()
+            if self.padding and sp is not None and sp.is_sharded(x):
+                return self.conv_nd(sp.halo(x, self.padding), self.weight, bias,
+                                    (0,) + (self.padding,) * (x.ndim - 3))
+            return self.conv_nd(x, self.weight, bias, self.padding)
 
 
 class ConvBNAct(nn.Module):

@@ -65,6 +65,16 @@ data group's. The gradients are then summed over the space axis and
 averaged over the data axis. The backward runs outside the context:
 whatever it runs again holds the forward's ``Space``.
 
+In a ``torch.profiler`` profile the loop's phases are spans
+(``utils.profiling.span``): ``uz.train.step`` (the batch drawn, uploaded
+and stepped) holding ``uz.step.augment``, ``uz.step.forward_loss``,
+``uz.step.backward`` and ``uz.step.update``; ``uz.train.validate``;
+``uz.train.log`` (the logging's host sync); ``uz.checkpoint.save`` and
+``uz.checkpoint.restore``; and in an evaluation each window's upload,
+``uz.eval.upload``, each image's ``uz.eval.image``, holding
+``uz.eval.sample``, ``uz.eval.metrics`` and ``uz.eval.loss``, and the host's
+wait for a window's results, ``uz.eval.fetch``.
+
 Evaluation draws its z noise from a device generator seeded from (seed,
 step, salt, image index) (``eval_generator``), never from the train
 state's generator, as the JAX package derives each image's key with
@@ -114,6 +124,7 @@ from unet_zoo_tpu_torch.parallel.mesh import (
 )
 from unet_zoo_tpu_torch.training.schedule import plateau_init, plateau_update
 from unet_zoo_tpu_torch.training.state import TrainState, restore_checkpoint, save_checkpoint
+from unet_zoo_tpu_torch.utils.profiling import span
 from unet_zoo_tpu_torch.utils.summary import MetricsWriter
 
 log = logging.getLogger(__name__)
@@ -296,9 +307,10 @@ class Trainer:
         (``train``'s ``PrefetchingLoader``) and is only moved. Under spatial
         sharding it returns this process's rows of the height of the
         augmented images and labels."""
-        x, y = self._warp(x.to(self.device), y.to(self.device), aug_params)
-        sp = space_lib.current()
-        return (x, y) if sp is None else sp.shard(x, y)
+        with span("step.augment"):
+            x, y = self._warp(x.to(self.device), y.to(self.device), aug_params)
+            sp = space_lib.current()
+            return (x, y) if sp is None else sp.shard(x, y)
 
     def _warp(self, x: torch.Tensor, y: torch.Tensor, aug_params) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.cfg.augment_on == "host":
@@ -329,24 +341,26 @@ class Trainer:
         spatial sharding of each level's height where it is sharded."""
         model = self.state.model
         model.train()
-        if self.cfg.model not in LATENT_FAMILIES:
-            return model.loss(model(x), y)
-        total, rows = self._global(x.shape[0])
-        if z_eps is None:
-            z_eps = model.train_noise(total, space_lib.global_spatial(x), self.state.generator, self.device)
-        sp = space_lib.current()
-        if isinstance(z_eps, (list, tuple)):
-            z_eps = [e[rows] if sp is None else sp.shard(e[rows]) for e in z_eps]
-        else:
-            z_eps = z_eps[rows]
-        return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
+        with span("step.forward_loss"):
+            if self.cfg.model not in LATENT_FAMILIES:
+                return model.loss(model(x), y)
+            total, rows = self._global(x.shape[0])
+            if z_eps is None:
+                z_eps = model.train_noise(total, space_lib.global_spatial(x), self.state.generator, self.device)
+            sp = space_lib.current()
+            if isinstance(z_eps, (list, tuple)):
+                z_eps = [e[rows] if sp is None else sp.shard(e[rows]) for e in z_eps]
+            else:
+                z_eps = z_eps[rows]
+            return model.loss(model(x, y, post_eps=z_eps, generator=self.state.generator), y)
 
     def backward(self, loss: torch.Tensor) -> None:
         """The gradients of ``loss``, each its mean over the mesh's
         processes (one all-reduce of every gradient in one flat buffer)."""
-        self.state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        all_reduce_grads_(self.mesh, self.state.model.parameters())
+        with span("step.backward"):
+            self.state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            all_reduce_grads_(self.mesh, self.state.model.parameters())
 
     def update(self, loss: torch.Tensor) -> None:
         """The plateau scheduler on this step's loss (its mean over the
@@ -356,12 +370,13 @@ class Trainer:
 
     def _update(self, loss: torch.Tensor) -> None:
         cfg, state = self.cfg, self.state
-        state.sched = plateau_update(state.sched, loss, factor=cfg.lr_plateau_factor,
-                                     patience=cfg.lr_plateau_patience, min_lr=cfg.min_lr)
-        for group in state.optimizer.param_groups:
-            group["lr"].copy_(state.sched.lr)
-        state.optimizer.step()
-        state.step += 1
+        with span("step.update"):
+            state.sched = plateau_update(state.sched, loss, factor=cfg.lr_plateau_factor,
+                                         patience=cfg.lr_plateau_patience, min_lr=cfg.min_lr)
+            for group in state.optimizer.param_groups:
+                group["lr"].copy_(state.sched.lr)
+            state.optimizer.step()
+            state.step += 1
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor, aug_params: Optional[AnyAugmentParams] = None,
                    z_eps=None) -> Dict[str, torch.Tensor]:
@@ -419,18 +434,21 @@ class Trainer:
         last_aux = None
         try:
             for self.iteration in range(start + 1, n_iter + 1):
-                x, y = source.next_batch(cfg.batch_size)
-                last_aux = self.train_step(self._to_device(shard_batch(self.mesh, x)),
-                                           self._to_device(shard_batch(self.mesh, y)))
+                with span("train.step"):
+                    x, y = source.next_batch(cfg.batch_size)
+                    last_aux = self.train_step(self._to_device(shard_batch(self.mesh, x)),
+                                               self._to_device(shard_batch(self.mesh, y)))
                 if not self.is_main:
                     continue
                 if validate and self.iteration % cfg.validation_frequency == 0:
-                    self.validate(data)
+                    with span("train.validate"):
+                        self.validate(data)
                 if self.iteration % cfg.logging_frequency == 0:
-                    values = {k: float(last_aux[k]) for k in ("loss", "kl", "recon")}
-                    values["lr"] = float(self.state.sched.lr)
-                    log.info("iteration %d loss %.5f", self.iteration, values["loss"])
-                    self.training_writer.scalars(self.iteration, values)
+                    with span("train.log"):
+                        values = {k: float(last_aux[k]) for k in ("loss", "kl", "recon")}
+                        values["lr"] = float(self.state.sched.lr)
+                        log.info("iteration %d loss %.5f", self.iteration, values["loss"])
+                        self.training_writer.scalars(self.iteration, values)
         finally:
             if loader is not None:
                 loader.close()
@@ -504,19 +522,23 @@ class Trainer:
         was_training = model.training
         model.eval()
         try:
-            with torch.inference_mode():
-                logits = self._sample(x, n_samples, generator, eps)
-                out = image_metrics(logits[0], y_all, y_chosen[0])
-                if stochastic:
-                    x_rep, y_rep = x.repeat(n_loss, 1, 1, 1), y_chosen.repeat(n_loss, 1, 1)
-                    if family == "phiseg":
-                        post_eps, prior_eps = loss_eps if loss_eps is not None else (None, None)
-                        loss_out = model(x_rep, y_rep, post_eps=post_eps, prior_eps=prior_eps, generator=generator)
+            with span("eval.image"), torch.inference_mode():
+                with span("eval.sample"):
+                    logits = self._sample(x, n_samples, generator, eps)
+                with span("eval.metrics"):
+                    out = image_metrics(logits[0], y_all, y_chosen[0])
+                with span("eval.loss"):
+                    if stochastic:
+                        x_rep, y_rep = x.repeat(n_loss, 1, 1, 1), y_chosen.repeat(n_loss, 1, 1)
+                        if family == "phiseg":
+                            post_eps, prior_eps = loss_eps if loss_eps is not None else (None, None)
+                            loss_out = model(x_rep, y_rep, post_eps=post_eps, prior_eps=prior_eps,
+                                             generator=generator)
+                        else:
+                            loss_out = model(x_rep, y_rep, post_eps=loss_eps, generator=generator)
+                        loss, aux = model.loss(loss_out, y_rep)
                     else:
-                        loss_out = model(x_rep, y_rep, post_eps=loss_eps, generator=generator)
-                    loss, aux = model.loss(loss_out, y_rep)
-                else:
-                    loss, aux = model.loss(logits[:, 0], y_chosen)
+                        loss, aux = model.loss(logits[:, 0], y_chosen)
         finally:
             model.train(was_training)
         out.update(loss=loss, kl=aux["kl"], recon=aux["recon"])
@@ -559,7 +581,8 @@ class Trainer:
         def issued():
             for start in range(0, len(chosen), EVAL_IMAGE_WINDOW):
                 stop = min(start + EVAL_IMAGE_WINDOW, len(chosen))
-                images, labels = self._upload(split, start, stop)
+                with span("eval.upload"):
+                    images, labels = self._upload(split, start, stop)
                 rows, maps = self.evaluate_images(images, labels, chosen[start:stop], n_samples, n_loss, salt,
                                                   first_index + start, n_maps=n_maps - start)
                 yield ({"rows": rows} if maps is None else {"rows": rows, "maps": maps}), start
@@ -573,7 +596,8 @@ class Trainer:
         yielded once its copies are done, while the card works on the next."""
         def landed(host, event, tag):
             if event is not None:
-                event.synchronize()
+                with span("eval.fetch"):
+                    event.synchronize()
             return host, tag
 
         pending = collections.deque()
@@ -956,9 +980,10 @@ class Trainer:
         holds the same state)."""
         if not self.is_main:
             return
-        save_checkpoint(os.path.join(self.log_dir, savename), self.state)
-        with open(os.path.join(self.log_dir, "best_metrics.json"), "w") as f:
-            json.dump({"iteration": self.iteration, **self.best}, f)
+        with span("checkpoint.save"):
+            save_checkpoint(os.path.join(self.log_dir, savename), self.state)
+            with open(os.path.join(self.log_dir, "best_metrics.json"), "w") as f:
+                json.dump({"iteration": self.iteration, **self.best}, f)
 
     def restore(self, savename: str) -> None:
         """Full-state resume from ``savename``: the train state, the best
@@ -968,14 +993,15 @@ class Trainer:
         process reads the same file, after a barrier that lets process 0
         finish writing it."""
         barrier("restore")
-        restore_checkpoint(os.path.join(self.log_dir, savename), self.state)
-        best_path = os.path.join(self.log_dir, "best_metrics.json")
-        if os.path.exists(best_path):
-            with open(best_path) as f:
-                saved = json.load(f)
-            for k in self.best:
-                if k in saved:
-                    self.best[k] = saved[k]
+        with span("checkpoint.restore"):
+            restore_checkpoint(os.path.join(self.log_dir, savename), self.state)
+            best_path = os.path.join(self.log_dir, "best_metrics.json")
+            if os.path.exists(best_path):
+                with open(best_path) as f:
+                    saved = json.load(f)
+                for k in self.best:
+                    if k in saved:
+                        self.best[k] = saved[k]
         self.iteration = self.state.step
 
     def close(self) -> None:
