@@ -2227,6 +2227,8 @@ def f32_step(conv_chain, dev, card: str, log_dir: str, experiment: str, launches
     check(trainer.chain_route == F32_ROUTE, f"f32 chains route to {trainer.chain_route}")
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "Trainer left TF32 on for a float32 experiment")
+    check(torch.backends.cudnn.benchmark and torch.backends.cudnn.benchmark_limit == 2,
+          "Trainer left cuDNN on its instant heuristic, not timing its first two algorithms a shape")
     trainer.train_step(xs[0], ys[0])
     torch.cuda.synchronize()
     conv_chain.launches = 0

@@ -242,10 +242,14 @@ TINY = dict(experiment_name="tiny_unet", model="unet", filter_channels=(4, 8, 8,
 @pytest.mark.parametrize("tf32", [None, True])
 def test_trainer_sets_and_logs_tf32(dtype, tf32, tmp_path, monkeypatch, caplog):
     """Trainer turns cuDNN's and float32 matmuls' TF32 off unless asked
-    (PyTorch lets cuDNN take TF32 by default) and logs the choice beside the
-    conv chain's route; the flags are the process's, so they are restored."""
+    (PyTorch lets cuDNN take TF32 by default), has cuDNN time the first two
+    of its heuristic's algorithms per shape in either precision, and logs
+    both beside the conv chain's route; the flags are the process's, so they
+    are restored."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32 is None)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", tf32 is None)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark_limit", 10)
     kwargs = {} if tf32 is None else {"tf32": tf32}
     with caplog.at_level(logging.INFO, logger="unet_zoo_tpu_torch.training.trainer"):
         trainer = Trainer(ExperimentConfig(**TINY, dtype=dtype), device="cpu", log_dir=str(tmp_path),
@@ -253,7 +257,8 @@ def test_trainer_sets_and_logs_tf32(dtype, tf32, tmp_path, monkeypatch, caplog):
     on = bool(tf32)
     assert torch.backends.cudnn.allow_tf32 is on and torch.backends.cuda.matmul.allow_tf32 is on
     assert trainer.tf32 is on
+    assert torch.backends.cudnn.benchmark is True and torch.backends.cudnn.benchmark_limit == 2
     line = next(r.getMessage() for r in caplog.records if "BN-free conv chains run on" in r.getMessage())
-    assert f"run on: {trainer.chain_route}; TF32 in cuDNN convolutions and float32 matmuls: {'on' if on else 'off'}" \
-        in line
+    assert f"run on: {trainer.chain_route}; TF32 in cuDNN convolutions and float32 matmuls: {'on' if on else 'off'}; " \
+        "cuDNN algorithms: timed per shape" in line
     trainer.close()

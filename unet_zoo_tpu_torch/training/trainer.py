@@ -216,7 +216,13 @@ class Trainer:
         on the U-Net, beyond the 1e-4 the card's f32 parity checks hold): a
         float32 experiment then computes what the CPU and the tests compute,
         and a bf16 one keeps its float32 parts (BatchNorm statistics, losses,
-        metrics) in float32. Both flags are logged beside the chain route.
+        metrics) in float32. cuDNN picks each convolution's algorithm by
+        timing its candidates at the first call of each shape, stride, dtype
+        and direction (``cudnn.benchmark``, the heuristic's first
+        ``benchmark_limit`` = 2), not by its instant heuristic alone, which
+        sends PHiSeg's wide strict-float32 convolutions to its FFT path,
+        many times slower there than its implicit GEMM. The flags are
+        process-wide and logged beside the chain route.
 
         ``mesh`` (``parallel.make_mesh``; by default ``parallel.local_mesh``
         on ``device``, this process alone) makes the step data-parallel over
@@ -257,9 +263,14 @@ class Trainer:
         # hand-written kernel of the compute dtype, or the CPU's plain version
         self.chain_route = chain_route(model_kwargs["dtype"] or torch.float32, self.device)
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = self.tf32 = tf32
+        # cuDNN times its heuristic's first two candidates a key: its own pick (FFT on PHiSeg's wide
+        # convolutions) and implicit GEMM; on an H100, timing 10 took up to minutes at a shape's first
+        # call and saved at most 1.3% of a step's device time
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, 2
         log.info("%s: %s, memory mode %s, %s compute on %s; BN-free conv chains run on: %s; TF32 in cuDNN "
-                 "convolutions and float32 matmuls: %s", cfg.experiment_name, cfg.model, cfg.effective_reversible_mode,
-                 cfg.dtype, self.device, self.chain_route, "on" if tf32 else "off")
+                 "convolutions and float32 matmuls: %s; cuDNN algorithms: timed per shape", cfg.experiment_name,
+                 cfg.model, cfg.effective_reversible_mode, cfg.dtype, self.device, self.chain_route,
+                 "on" if tf32 else "off")
         self.state = TrainState(
             model=model,
             optimizer=adam_coupled_l2(model.parameters(), cfg.learning_rate, cfg.weight_decay),
