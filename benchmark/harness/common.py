@@ -1,5 +1,6 @@
 """What the runners share: the reference of a cell's configuration, the
-upload, the reference's float32 precision switch, and the profiled window."""
+upload, the reference's float32 precision switch, the profiled window, and
+the device's busy time over a whole window."""
 
 from __future__ import annotations
 
@@ -29,9 +30,14 @@ class Clock:
         self.t = now
 
 
+def family(c):
+    """The cell's reference module, ``benchmark.reference.<family>``, named
+    by its configuration's ``family``."""
+    return importlib.import_module(f"benchmark.reference.{c.config['family']}")
+
+
 def reference_model(c, overrides=None):
-    family = importlib.import_module(f"benchmark.reference.{c.config['family']}")
-    return family.build(c.config["experiment"], overrides)
+    return family(c).build(c.config["experiment"], overrides)
 
 
 def upload(a: np.ndarray, device) -> torch.Tensor:
@@ -91,3 +97,43 @@ def profiled(device, body, host_ops: bool = True):
         return out, trace.Trace.load(path, None if host_ops else took)
     finally:
         os.remove(path)
+
+
+@contextlib.contextmanager
+def device_busy(device, on: bool = True):
+    """Seconds in which a kernel, copy or set ran on the device while the
+    block ran, their intervals merged: a trace of the device's activity
+    alone (as ``profiled(host_ops=False)``) over the whole block, its work
+    waited for before the trace stops, and its events on the device read
+    from the profiler's own records rather than through an exported file,
+    since a window of a host-paced cell holds over a million of them
+    (reading them takes about as long again as the block, after it). Yields
+    a dict whose ``busy_s`` is set once the block has ended; it stays None
+    where ``on`` is false or the device is no card."""
+    got = {"busy_s": None}
+    if not on or torch.device(device).type != "cuda":
+        yield got
+        return
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        yield got
+        sync(device)
+    finally:
+        prof.stop()
+    cuda = torch.autograd.DeviceType.CUDA
+    got["busy_s"] = merged_s([(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                              if e.device_type() == cuda])
+
+
+def merged_s(intervals) -> float:
+    """Seconds covered by (start, end) intervals in nanoseconds, overlaps
+    counted once."""
+    busy, start, end = 0, None, None
+    for ts, te in sorted(intervals):
+        if end is None or ts > end:
+            busy += 0 if end is None else end - start
+            start, end = ts, te
+        else:
+            end = max(end, te)
+    return (busy + (0 if end is None else end - start)) / 1e9

@@ -42,6 +42,7 @@ class EvalRun:
         self.log_dir, self.fault = log_dir, fault
         self.cfg = spec.experiment(c, overrides)
         self.model = common.reference_model(c, overrides)
+        self.noise = self.model.image_noise_shapes(self.w["samples"], self.w["n_loss"])
         self.calls = []  # (index, image, grader, host rows, host maps) of the window's calls
         self.index = 0
 
@@ -80,8 +81,7 @@ class EvalRun:
             self.model.step_loss(self.p0, self.bufs0, x, mask, train=True)
 
     def _draws(self, index: int, device=None) -> dict:
-        return inputs.image_draws(self.seed, index, self.w["samples"], self.w["n_loss"], self.model.latent_sizes(),
-                                  self.model.zdim, device or self.device)
+        return inputs.image_draws(self.seed, index, self.noise, device or self.device)
 
     def _give_draws(self) -> None:
         tr = self.trainer
@@ -198,15 +198,13 @@ class EvalRun:
                 d = self._draws(j)
                 x = torch.from_numpy(self.images[i].astype(np.float32)).to(self.device)[None, None]
                 gts = torch.from_numpy(np.moveaxis(self.labels[i], -1, 0).astype(np.int64)).to(self.device)
-                logits = m.sample(self.p0, self.bufs0, x, self.w["samples"],
-                                  [e[0].permute(0, 3, 1, 2) for e in d["eps"]])
+                logits = m.sample(self.p0, self.bufs0, x, self.w["samples"], m.to_reference(d["eps"]))
                 r = ref_metrics.evaluate(logits, gts, gts[a])
                 # the Dice of the program's own mean prediction: read only to judge the program's Dice
                 dice_of_map = ref_metrics.dice(got["mean_pred"].to(self.device), gts[a], m.C).cpu()
-                post, prior = ([e.permute(0, 3, 1, 2) for e in eps] for eps in d["loss_eps"])
                 n_loss = self.w["n_loss"]
                 terms = m.step_loss(self.p0, self.bufs0, x.expand(n_loss, -1, -1, -1), gts[a].expand(n_loss, -1, -1),
-                                    z_eps=post, prior_eps=prior, train=False)
+                                    z_eps=m.to_reference(d["loss_eps"]), train=False)
                 out.append({"call": got["call"], "ged": float(r["ged"]), "ncc": float(r["ncc"]),
                             "dice": r["dice"].cpu(), "mean_pred": r["mean_pred"].cpu(), "sample0": r["sample0"].cpu(),
                             "dice_of_map": dice_of_map,

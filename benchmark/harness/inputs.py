@@ -106,13 +106,12 @@ def load_into(model: torch.nn.Module, params: Dict[str, torch.Tensor], buffers: 
             have[name].copy_(t)
 
 
-def step_draws(seed: int, step: int, batch: int, size: Tuple[int, int], aug: dict,
-               latent_sizes: List[tuple], zdim: int, device) -> dict:
+def step_draws(seed: int, step: int, batch: int, size: Tuple[int, int], aug: dict, noise, device) -> dict:
     """One train step's draws, with the published ranges: per image a gate
     (1 in ``augment_every_nth``), an angle U(-rot, rot) degrees, a crop side r
     in [H - offset, H] and its corner, each flip with probability 1/2; and
-    for a latent model the posterior's z noise, (B, h, w, zdim) a level,
-    finest first."""
+    where ``noise`` (the reference model's ``noise_shapes(batch)``) names
+    any, the posterior's z noise at those shapes, as the program takes it."""
     g = generator(device, seed, STEP, step)
     nh, nw = size
     u = torch.rand((7, batch), generator=g, device=device)
@@ -127,27 +126,35 @@ def step_draws(seed: int, step: int, batch: int, size: Tuple[int, int], aug: dic
         "flip_lr": u[5] < 0.5,
         "flip_ud": u[6] < 0.5,
     }
-    if latent_sizes:
-        draws["z_eps"] = _normal_levels(g, [(batch, *s, zdim) for s in latent_sizes], device)
+    if noise:
+        draws["z_eps"] = _normal_levels(g, noise, device)
     return draws
 
 
-def image_draws(seed: int, index: int, samples: int, n_loss: int, latent_sizes: List[tuple], zdim: int,
-                device) -> dict:
-    """One evaluated image's noise: ``eps`` (1, samples, h, w, zdim) a level
-    for the samples, and ``loss_eps`` (posterior, prior), each (n_loss, h, w,
-    zdim) a level, for the eval-mode loss; finest level first."""
-    g = generator(device, seed, IMAGE, index)
-    L = len(latent_sizes)
-    shapes = ([(1, samples, *s, zdim) for s in latent_sizes] + [(n_loss, *s, zdim) for s in latent_sizes] * 2)
-    levels = _normal_levels(g, shapes, device)
-    return {"eps": levels[:L], "loss_eps": (levels[L:2 * L], levels[2 * L:])}
+def image_draws(seed: int, index: int, noise: tuple, device) -> dict:
+    """One evaluated image's noise at ``noise``, the reference model's
+    ``image_noise_shapes``: ``eps`` for the samples and ``loss_eps`` for
+    the eval-mode loss, as the program's ``eval_image`` takes them."""
+    eps, loss_eps = _normal_levels(generator(device, seed, IMAGE, index), noise, device)
+    return {"eps": eps, "loss_eps": loss_eps}
 
 
-def _normal_levels(g: torch.Generator, shapes: List[tuple], device) -> List[torch.Tensor]:
-    flat = torch.randn(sum(math.prod(s) for s in shapes), generator=g, device=device)
-    out, at = [], 0
-    for s in shapes:
-        out.append(flat[at:at + math.prod(s)].view(s))
-        at += math.prod(s)
-    return out
+def _is_shape(s) -> bool:
+    return isinstance(s, tuple) and len(s) > 0 and all(isinstance(n, int) for n in s)
+
+
+def _shapes(s) -> List[tuple]:
+    return [s] if _is_shape(s) else [leaf for e in s for leaf in _shapes(e)]
+
+
+def _normal_levels(g: torch.Generator, shapes, device):
+    """Standard normal tensors at ``shapes``: a shape (a tuple of ints), or
+    a list or tuple of them, nested; one draw for all, cut in order, depth
+    first, and returned nested alike."""
+    sizes = [math.prod(s) for s in _shapes(shapes)]
+    flat = iter(torch.randn(sum(sizes), generator=g, device=device).split(sizes))
+
+    def nest(s):
+        return next(flat).view(s) if _is_shape(s) else type(s)(nest(e) for e in s)
+
+    return nest(shapes)

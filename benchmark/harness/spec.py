@@ -51,13 +51,19 @@ def cell(name: str, bench: Optional[dict] = None) -> Cell:
                 load_json(os.path.join(BENCH_DIR, "workloads", f"{name}.json")))
 
 
-def reader(metric: str) -> Callable:
-    """``read(ctx)`` of ``metrics/<metric>.py``."""
+def reader_module(metric: str):
+    """The module ``metrics/<metric>.py``: its ``read(ctx)``, and ``WINDOW``
+    where it reads the timed window that a traced run then adds."""
     path = os.path.join(BENCH_DIR, "metrics", f"{metric}.py")
     spec = importlib.util.spec_from_file_location(f"bench_metric_{metric.replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str) -> Callable:
+    """``read(ctx)`` of ``metrics/<metric>.py``."""
+    return reader_module(metric).read
 
 
 def experiment(c: Cell, overrides: Optional[Dict] = None):

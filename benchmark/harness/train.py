@@ -57,9 +57,9 @@ class TrainRun:
         self.trainer = Trainer(self.cfg, device=self.device, seed=self.seed, log_dir=self.log_dir, tensorboard=False)
         self.p0, self.bufs0 = inputs.weights(m.specs(), self.seed, self.device)
         inputs.load_into(self.trainer.state.model, self.p0, self.bufs0)
-        self.draws = [inputs.step_draws(self.seed, k, self.batch, m.image_size, self.c.config["experiment"]
-                                        ["augmentation_options"], m.latent_sizes(), getattr(m, "zdim", 0), self.device)
-                      for k in range(w["check_steps"])]
+        aug = self.c.config["experiment"]["augmentation_options"]
+        self.draws = [inputs.step_draws(self.seed, k, self.batch, m.image_size, aug, m.noise_shapes(self.batch),
+                                        self.device) for k in range(w["check_steps"])]
         clock.lap("trainer and weights")
         self._plant()
         tr = self.trainer
@@ -122,24 +122,42 @@ class TrainRun:
 
     # the window
 
-    def window(self, seconds: float) -> dict:
+    def window(self, seconds: float, device_time: bool = False) -> dict:
         """The compared steps, then chunks of ``chunk_steps`` until
-        ``seconds`` are spent, all timed."""
+        ``seconds`` are spent, all timed. With ``device_time`` the whole
+        window runs under a trace of the device's activity alone, and
+        ``step_device_ms`` is the device's busy time over it a step (on the
+        CPU, the window's own time a step)."""
+        return self._timed(seconds, compared=True, device_time=device_time)
+
+    def rate_window(self, seconds: float) -> dict:
+        """Chunks of ``chunk_steps`` until ``seconds`` are spent, timed as
+        ``window`` times them: the rate of a traced run, after its traced
+        steps (the compared steps are its own)."""
+        return self._timed(seconds, compared=False, device_time=False)
+
+    def _timed(self, seconds: float, compared: bool, device_time: bool) -> dict:
         tr, chunk = self.trainer, self.w["chunk_steps"]
         common.sync(self.device)
-        t0 = time.perf_counter()
-        self.check_steps()
-        ends = []
-        while True:
-            ends.append(tr.train(self.data, iterations=tr.state.step + chunk, validate=False)["loss"])
-            if time.perf_counter() - t0 >= seconds:
-                break
-        common.sync(self.device)
-        took = time.perf_counter() - t0
-        steps = self.w["check_steps"] + chunk * len(ends)
+        with common.device_busy(self.device, device_time) as busy:
+            t0 = time.perf_counter()
+            if compared:
+                self.check_steps()
+            ends = []
+            while True:
+                ends.append(tr.train(self.data, iterations=tr.state.step + chunk, validate=False)["loss"])
+                if time.perf_counter() - t0 >= seconds:
+                    break
+            common.sync(self.device)
+            took = time.perf_counter() - t0
+        steps = (self.w["check_steps"] if compared else 0) + chunk * len(ends)
         failed = int((~torch.isfinite(torch.stack(ends))).sum()) * chunk
-        failed += sum(not torch.isfinite(v) for v in self.losses)
-        return {"metrics": {"train_images_per_s": steps * self.batch / took}, "attempted": steps, "failed": failed}
+        if compared:
+            failed += sum(not torch.isfinite(v) for v in self.losses)
+        metrics = {"train_images_per_s": steps * self.batch / took}
+        if device_time:
+            metrics["step_device_ms"] = (took if busy["busy_s"] is None else busy["busy_s"]) / steps * 1e3
+        return {"metrics": metrics, "attempted": steps, "failed": failed}
 
     def traced(self) -> dict:
         """The per-layer readings, after the compared steps: ``trace_steps``
@@ -207,7 +225,7 @@ class TrainRun:
                 x, y = self._batch(program, k)
                 xa, ya = ref_augment.warp(x, y, d, self.model.C)
                 out["augmented"].append((xa, ya))
-                z = [e.permute(0, 3, 1, 2) for e in d["z_eps"]] if "z_eps" in d else None
+                z = self.model.to_reference(d["z_eps"]) if "z_eps" in d else None
                 terms = self.model.step_loss(p, bufs, xa.permute(0, 3, 1, 2), ya, z_eps=z, train=True)
                 grads = torch.autograd.grad(terms["loss"], list(p.values()), allow_unused=True)
                 grads = {n: g if g is not None else torch.zeros_like(p[n]) for n, g in zip(p, grads)}

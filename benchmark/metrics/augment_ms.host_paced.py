@@ -1,0 +1,6 @@
+"""``augment_ms.train`` read in the host-paced train cells, where it moves
+``step_device_ms``."""
+
+from benchmark.harness import spec
+
+read = spec.reader("augment_ms.train")

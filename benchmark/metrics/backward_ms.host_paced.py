@@ -1,0 +1,6 @@
+"""``backward_ms.train`` read in the host-paced train cells, where it moves
+``step_device_ms``."""
+
+from benchmark.harness import spec
+
+read = spec.reader("backward_ms.train")

@@ -1,0 +1,6 @@
+"""``step_mfu_pct.train`` read in the host-paced train cells, where it moves
+``step_device_ms``."""
+
+from benchmark.harness import spec
+
+read = spec.reader("step_mfu_pct.train")

@@ -34,6 +34,9 @@ from benchmark.reference import ops
 KL_LEVEL_WEIGHT = 4.0
 TRUNK_DEPTH = 3
 
+# the benchmark's tests' size: three resolution levels, two latent levels, 16x16
+TINY = dict(filter_channels=(4, 8, 8), latent_levels=2, image_size=(16, 16))
+
 
 class Model:
     """The sizes of one configuration: ``filters``, ``latent_levels``,
@@ -98,6 +101,31 @@ class Model:
     def latent_sizes(self) -> List[tuple]:
         """Spatial size of each latent level, finest (level 0) first."""
         return [self.sizes[lvl + self.R - self.L] for lvl in range(self.L)]
+
+    # the noise: channels last in the program, (..., zdim, h, w) here
+
+    def noise_shapes(self, batch: int) -> List[tuple]:
+        """A train step's posterior noise as the program's ``train_step``
+        takes its ``z_eps``: (batch, h, w, zdim) a latent level, finest
+        first."""
+        return [(batch, *s, self.zdim) for s in self.latent_sizes()]
+
+    def image_noise_shapes(self, samples: int, n_loss: int) -> tuple:
+        """An evaluated image's noise as the program's ``eval_image`` takes
+        it: ``eps``, (1, samples, h, w, zdim) a level, for the samples, then
+        ``loss_eps``, the (posterior, prior) pair of (n_loss, h, w, zdim)
+        levels, for the eval-mode loss."""
+        levels = self.latent_sizes()
+        loss = [(n_loss, *s, self.zdim) for s in levels]
+        return [(1, samples, *s, self.zdim) for s in levels], (loss, loss)
+
+    def to_reference(self, eps):
+        """Noise of ``noise_shapes`` or of either part of
+        ``image_noise_shapes``, in the layout that ``step_loss`` and
+        ``sample`` take: each level's zdim moved before its h and w."""
+        if isinstance(eps, tuple):
+            return tuple(self.to_reference(e) for e in eps)
+        return [e.movedim(-1, -3) for e in eps]
 
     # the nets
 
@@ -176,9 +204,16 @@ class Model:
             recon = recon + _multinoulli(acc, mask)
         return {"loss": kl + recon, "kl": kl, "recon": recon}
 
-    def step_loss(self, p, bufs, x, mask, z_eps=None, prior_eps=None, train: bool = True) -> Dict[str, torch.Tensor]:
-        """The loss terms of ``forward``; absent noise is zero."""
-        post_eps = z_eps if z_eps is not None else self._zeros(x)
+    def step_loss(self, p, bufs, x, mask, z_eps=None, train: bool = True) -> Dict[str, torch.Tensor]:
+        """The loss terms of ``forward``. ``z_eps`` (``to_reference``'s
+        layout) is the posterior's noise in training, and the (posterior,
+        prior) pair in evaluation; absent noise is zero."""
+        if train:
+            post_eps, prior_eps = z_eps, None
+        else:
+            post_eps, prior_eps = z_eps if z_eps is not None else (None, None)
+        if post_eps is None:
+            post_eps = self._zeros(x)
         if not train and prior_eps is None:
             prior_eps = self._zeros(x)
         return self.loss(self.forward(p, bufs, x, mask, train, post_eps, prior_eps), mask)
@@ -188,11 +223,13 @@ class Model:
 
     def sample(self, p, bufs, x, n: int, eps=None) -> torch.Tensor:
         """The logits (n, C, H, W) of n prior samples of one image x (1, 1, H,
-        W), eps (n, zdim, h, w) a latent level (absent: zero): the prior's
+        W), eps (1, n, zdim, h, w) a latent level (absent: zero): the prior's
         trunk once, its latent path and the likelihood on the samples, all in
         eval mode."""
         if eps is None:
             eps = [torch.zeros((n, self.zdim, *s), device=x.device) for s in self.latent_sizes()]
+        else:
+            eps = [e[0] for e in eps]
         skips, bottom = self._encoder(p, bufs, "prior", x, train=False)
         skips = [t.expand(n, -1, -1, -1) for t in skips[len(skips) - (self.L - 1):]]
         z, _, _ = self._zpath(p, bufs, "prior", skips, bottom.expand(n, -1, -1, -1), False, eps=eps)

@@ -17,6 +17,9 @@ from benchmark.reference import ops
 
 DEPTH = 3
 
+# the benchmark's tests' size: two levels, 16x16
+TINY = dict(filter_channels=(4, 8), image_size=(16, 16))
+
 
 class Model:
     def __init__(self, filters: Sequence[int], classes: int, image_size: Sequence[int], in_channels: int = 1):
@@ -71,10 +74,11 @@ class Model:
             x = ops.conv_relu_seq(p, f"up{i}.convs", torch.cat([x, skips[i]], 1), DEPTH)
         return ops.conv(p, "last", x)
 
-    def latent_sizes(self) -> list:
+    def noise_shapes(self, batch: int) -> list:
+        """None: the model is deterministic, and no noise is drawn for it."""
         return []
 
-    def step_loss(self, p, bufs, x, mask, z_eps=None, prior_eps=None, train: bool = True) -> Dict[str, torch.Tensor]:
+    def step_loss(self, p, bufs, x, mask, z_eps=None, train: bool = True) -> Dict[str, torch.Tensor]:
         return self.loss(self.forward(p, x), mask)
 
     def sample(self, p, bufs, x, n: int, eps=None) -> torch.Tensor:

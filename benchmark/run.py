@@ -5,7 +5,8 @@ line of standard output:
 
 ``--trace 0`` measures the cell's end-to-end metrics over a window of
 ``--seconds``; ``--trace 1`` reads its per-layer metrics from a profiled
-window. Both check, once the window has closed, that what the timed path
+window, then, where a reader asks for it (``WINDOW``), from a timed window
+of ``--seconds``. Both check, once the window has closed, that what the timed path
 produced agrees with the plain reference (``correct``), and print each
 number compared beside its limit. Needs a CUDA card: without one (or with
 fewer than the cell asks for) it exits with code 2 and prints no result.
@@ -72,8 +73,12 @@ def run_cell(c, seed: int, seconds: float, traced: bool, device, t_start: float,
         if traced:
             ctx = run.traced()
             attempted, failed = ctx["units"], 0
+            if any(getattr(spec.reader_module(m["name"]), "WINDOW", False) for m in c.metrics("per_layer")):
+                ctx["window"] = run.rate_window(seconds)["metrics"]
         else:
-            out = run.window(seconds)
+            # the device's busy time a step is taken over the whole window where the cell reports it
+            device_time = "step_device_ms" in {m["name"].split(".")[0] for m in c.metrics("end_to_end")}
+            out = run.window(seconds, device_time=True) if device_time else run.window(seconds)
             attempted, failed = out["attempted"], out["failed"]
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         program = run.program_outputs()

@@ -41,9 +41,20 @@ def test_traced_run_reads_its_per_layer_metrics(name):
     assert result["correct"]
     assert set(result["metrics"]) <= {m["name"] for m in spec.cell(name).metrics("per_layer")}
     assert result["device"]["window_s"] > 0 and set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+    # a reader of the timed window that a traced run adds finds it
+    for m in spec.cell(name).metrics("per_layer"):
+        if getattr(spec.reader_module(m["name"]), "WINDOW", False):
+            assert result["metrics"][m["name"]]["value"] > 0
 
 
 @pytest.mark.parametrize("name,fault", [(n, f) for n in TRAIN for f in ("unchanged", "half_batch")]
                          + [(n, f) for n in EVAL for f in ("altered_ncc", "altered_ged", "altered_dice")])
 def test_planted_fault_is_not_correct(name, fault):
     assert not _run(name, fault=fault)["correct"]
+
+
+def test_device_busy_merges_overlaps():
+    from benchmark.harness import common
+
+    assert common.merged_s([]) == 0.0
+    assert common.merged_s([(5, 9), (0, 2), (1, 3), (8, 12), (20, 21)]) == 11e-9

@@ -1,20 +1,22 @@
 """Cells cut to a size the CPU runs in seconds, for the benchmark's tests:
-the same files, the model at a few channels and 16x16, a few images."""
+the same files, the model at the size its reference module states
+(``TINY``), a few images."""
 
 import dataclasses
 
-from benchmark.harness import spec
+from benchmark.harness import common, spec
 
 SEED = 2 ** 31 + 7  # past 32 signed bits, as the seeds the runs are given
 
 
 def cell(name: str):
     """(cell, overrides) of ``name`` at the tests' size."""
-    c = spec.cell(name)
-    if c.config["family"] == "phiseg":
-        overrides = dict(filter_channels=(4, 8, 8), latent_levels=2, image_size=(16, 16))
-    else:
-        overrides = dict(filter_channels=(4, 8), image_size=(16, 16))
+    return cut(spec.cell(name))
+
+
+def cut(c: spec.Cell):
+    """(cell, overrides) of the cell ``c`` at the tests' size."""
+    overrides = dict(common.family(c).TINY)
     w = dict(c.workload, data={"train": 40, "test": 6}, chunk_steps=2, trace_steps=2)
     if w["kind"] == "train":
         overrides["batch_size"] = 4
