@@ -1,0 +1,6 @@
+"""``backward_ms.train`` read in the ProbUNet train cell, where it moves
+``step_device_ms``."""
+
+from benchmark.harness import spec
+
+read = spec.reader("backward_ms.train")

@@ -1,0 +1,6 @@
+"""``forward_ms.train`` read in the ProbUNet train cell, where it moves
+``step_device_ms``."""
+
+from benchmark.harness import spec
+
+read = spec.reader("forward_ms.train")

@@ -39,6 +39,10 @@ NAMED = ("uz.train.step", "uz.data.next_batch", *STEP_SPANS, "uz.train.log", "uz
          "uz.checkpoint.save", "uz.checkpoint.restore", "uz.phiseg.posterior", "uz.phiseg.prior",
          "uz.phiseg.likelihood", "uz.phiseg.loss", "uz.eval.image", *EVAL_SPANS)
 CONV = re.compile(r"^uz\.conv\.\d+-\d+\.k[13]\.\d+x\d+$")
+TOY_PROB_UNET = dict(experiment_name="toy_prob_unet", model="prob_unet", filter_channels=(4, 8, 8),
+                     image_size=(SIZE, SIZE), batch_size=2, latent_levels=1, latent_dim=6, no_convs_fcomb=3)
+PROB_UNET_SPANS = ("uz.prob_unet.prior", "uz.prob_unet.posterior", "uz.prob_unet.trunk", "uz.prob_unet.fcomb",
+                   "uz.prob_unet.loss")
 
 
 def _trainer(tmp_path, name):
@@ -187,3 +191,32 @@ def test_conv_span_names_the_shape(ndim):
     assert torch.equal(y, conv(x))
     want = "uz.conv.3-5.k3." + "x".join(map(str, x.shape[1:-1]))
     assert [r[0] for r in profiling.recorded_spans()[before:]] == [want]
+
+
+def test_prob_unet_spans(tmp_path):
+    """A ProbUNet step under a profile records its five spans once each,
+    inside the step's forward and loss; ``sample`` records the prior's, the
+    trunk's and fcomb's; with no profile nothing is recorded."""
+    tr = Trainer(ExperimentConfig(**TOY_PROB_UNET), device="cpu", seed=5, log_dir=str(tmp_path / "prob"),
+                 tensorboard=False)
+    data = _data()
+    before = len(profiling.recorded_spans())
+    tr.train(data, iterations=1, validate=False)
+    with torch.no_grad():
+        tr.state.model.sample(torch.zeros((1, SIZE, SIZE, 1)), 2)
+    assert len(profiling.recorded_spans()) == before
+
+    def body():
+        tr.train(data, iterations=2, validate=False)
+        with torch.no_grad():
+            tr.state.model.sample(torch.zeros((1, SIZE, SIZE, 1)), 2)
+
+    _, events, recorded = _profiled(tmp_path, body)
+    spans = _spans(events)
+    names = [r[0] for r in recorded if r[0].startswith("uz.prob_unet.")]
+    assert sorted(names) == sorted(PROB_UNET_SPANS + ("uz.prob_unet.prior", "uz.prob_unet.trunk",
+                                                      "uz.prob_unet.fcomb"))
+    for name in PROB_UNET_SPANS:
+        assert _inside(spans[name][0], spans["uz.step.forward_loss"]), name
+    for name in ("uz.prob_unet.prior", "uz.prob_unet.trunk", "uz.prob_unet.fcomb"):
+        assert len(spans[name]) == 2 and not _inside(spans[name][1], spans["uz.step.forward_loss"]), name

@@ -22,6 +22,13 @@ reference's ``sigma1 * sigma0`` quirk), plus ``REG_WEIGHT`` times the sum
 of the L2 norms of every parameter of the two Gaussian nets and of
 ``fcomb`` except ``fcomb.last`` (``regularized_parameters``).
 
+In a ``torch.profiler`` profile each part's work is a span
+(``utils.profiling.span``): ``uz.prob_unet.prior``,
+``uz.prob_unet.posterior``, ``uz.prob_unet.trunk`` and
+``uz.prob_unet.fcomb`` (in ``forward`` and in ``sample``); ``loss`` is
+``uz.prob_unet.loss``. The backward, issued from autograd's thread, is
+under none of them.
+
 ``self.training`` stands where the JAX package passes ``train``: it selects
 BatchNorm's batch or running statistics. Randomness: the posterior's z noise
 (``post_eps`` of ``forward``, (B, latent_dim)) and ``sample``'s ((B, n,
@@ -52,6 +59,7 @@ import torch.nn.functional as F
 from unet_zoo_tpu_torch import ops
 from unet_zoo_tpu_torch.models.unet import UNet, softmax_cross_entropy
 from unet_zoo_tpu_torch.parallel import space
+from unet_zoo_tpu_torch.utils.profiling import span
 
 # the weight of the sum of parameter norms in the loss (reference :368-370)
 REG_WEIGHT = 1e-5
@@ -199,10 +207,13 @@ class ProbUNet(nn.Module):
         (drawn from ``generator`` if not given), in train and in eval mode
         alike."""
         out: Dict[str, torch.Tensor] = {}
-        out["prior_mu"], out["prior_sigma"] = self.prior_net(x)
+        with span("prob_unet.prior"):
+            out["prior_mu"], out["prior_sigma"] = self.prior_net(x)
         if mask is not None:
-            out["post_mu"], out["post_sigma"] = self.posterior_net(x, mask)
-        feat = self.unet(x)
+            with span("prob_unet.posterior"):
+                out["post_mu"], out["post_sigma"] = self.posterior_net(x, mask)
+        with span("prob_unet.trunk"):
+            feat = self.unet(x)
         out["features"] = feat
         if not self.training:
             out["logits"] = self.last_conv(feat)
@@ -210,7 +221,8 @@ class ProbUNet(nn.Module):
             mu, sigma = out["post_mu"], out["post_sigma"]
             if post_eps is None:
                 post_eps = torch.randn(mu.shape, generator=generator or self.generator, device=mu.device)
-            out["recon"] = self.fcomb(feat, mu + sigma * post_eps)
+            with span("prob_unet.fcomb"):
+                out["recon"] = self.fcomb(feat, mu + sigma * post_eps)
         return out
 
     def train_noise(self, batch: int, spatial: Sequence[int], generator: torch.Generator, device) -> torch.Tensor:
@@ -230,13 +242,16 @@ class ProbUNet(nn.Module):
         was_training = self.training
         self.eval()
         try:
-            mu, sigma = self.prior_net(x)
-            feat = self.unet(x)
+            with span("prob_unet.prior"):
+                mu, sigma = self.prior_net(x)
+            with span("prob_unet.trunk"):
+                feat = self.unet(x)
             batch = x.shape[0]
             if eps is None:
                 eps = torch.randn((batch, n, mu.shape[-1]), generator=generator or self.generator, device=mu.device)
             z = mu[:, None] + sigma[:, None] * eps
-            logits = self.fcomb(feat.repeat_interleave(n, dim=0), z.reshape(batch * n, -1))
+            with span("prob_unet.fcomb"):
+                logits = self.fcomb(feat.repeat_interleave(n, dim=0), z.reshape(batch * n, -1))
         finally:
             self.train(was_training)
         return logits.reshape(batch, n, *logits.shape[1:])
@@ -261,15 +276,16 @@ class ProbUNet(nn.Module):
         Under spatial sharding the CE sums this process's pixels, and the
         KL of the latent vectors and the norms, which every process of the
         space group holds whole, count on one of them (``space.own``)."""
-        ce = softmax_cross_entropy(out["recon"], mask)
-        recon = ce.reshape(ce.shape[0], -1).sum(1).mean() * space.own(out["recon"])
-        kl = kl_two_gauss_diag(out["post_mu"], out["post_sigma"], out["prior_mu"], out["prior_sigma"],
-                               parity=self.kl_parity) * space.own(out["post_mu"])
-        reg = _SumOfNorms.apply(*(p for _, p in self.regularized_parameters()))
-        reg = reg * space.own(reg)
-        untouched = sum(p.sum() for p in self.last_conv.parameters()) * 0.0
-        loss = recon + kl + REG_WEIGHT * reg + untouched
-        return loss, {"loss": loss, "kl": kl, "recon": recon}
+        with span("prob_unet.loss"):
+            ce = softmax_cross_entropy(out["recon"], mask)
+            recon = ce.reshape(ce.shape[0], -1).sum(1).mean() * space.own(out["recon"])
+            kl = kl_two_gauss_diag(out["post_mu"], out["post_sigma"], out["prior_mu"], out["prior_sigma"],
+                                   parity=self.kl_parity) * space.own(out["post_mu"])
+            reg = _SumOfNorms.apply(*(p for _, p in self.regularized_parameters()))
+            reg = reg * space.own(reg)
+            untouched = sum(p.sum() for p in self.last_conv.parameters()) * 0.0
+            loss = recon + kl + REG_WEIGHT * reg + untouched
+            return loss, {"loss": loss, "kl": kl, "recon": recon}
 
 
 def kl_two_gauss_diag(mu0: torch.Tensor, sigma0: torch.Tensor, mu1: torch.Tensor, sigma1: torch.Tensor,
