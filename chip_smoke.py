@@ -10,7 +10,8 @@ Phases, each printing its own lines:
    memory per kernel (no wgmma serialized, no spill in the f32 kernel), and
    a check of the kernels' machine code (``cuobjdump -sass``): every bf16
    and f32 instantiation issues wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``) and no ``mma.sync`` (``HMMA``);
+   (``UTMALDG``) and no ``mma.sync`` (``HMMA``), beside the one
+   ``fold_bn_pack_f32``;
 2. every hand-written kernel against its plain PyTorch version on the card,
    at the kernel tests' shapes, edge shapes (one full and one partial K
    chunk, 192 output channels in one block, C_in = 1 on the plain loader,
@@ -161,8 +162,8 @@ Phases, each printing its own lines:
    and HD95's host time for one region at 128^3;
 11. the UZH prostate path (``phiseg_uzh_7_5_512``: PHiSeg 2D at filters
    32/64/128/192/192/192/192, 5 latent levels, 3 classes, 6 annotators,
-   512x512, batch 12), which launches no hand-written kernel (every
-   sequence carries BatchNorm or is reversible): (a) the registered
+   512x512, batch 12), whose train step launches no hand-written kernel
+   (every sequence carries BatchNorm or is reversible): (a) the registered
    architecture at 192x192 (``phiseg_uzh_7_5_192`` and
    ``phiseg_uzh_rev_7_5_192``), batch 2, float32 with TF32 off, the same
    weights and z noise on the card and the CPU, eval and train mode, at
@@ -247,7 +248,18 @@ Phases, each printing its own lines:
    process's; (c) the twin of
    ``dryrun_multichip``: ``phiseg`` at the published widths 32-192, 64x64,
    two steps, then the tiny rank-5 PHiSeg3D step, losses finite. The
-   processes hold one state after every step.
+   processes hold one state after every step;
+15. eval-mode BatchNorm folded into the float32 kernel (``ConvSeq.folds``):
+   (a) ``tests/test_torch_fold_card.py`` in a subprocess (pytest without
+   the suite's conftest, which imports JAX): ``fold_bn_pack_f32`` bit for bit
+   against its plain version, every BatchNorm sequence of a
+   ``phiseg_7_5_12`` evaluation at its batch (100 samples folded, or 1)
+   against the library route, and one ``eval_image`` on both routes; (b)
+   one ``phiseg_7_5_12`` image at 100 samples (float32, TF32 off) on the
+   folded and on the library route: ms an image (fenced, min of
+   FOLD_TIMED_CALLS), the host's issue ms, the decode's and the eval-mode
+   loss's device ms, the launches of the kernel and of the fold, and the
+   fold's device ms over the model's BatchNorm sequences beside its bound.
 
 Then a JSON line of the kernels (with per-block times, bounds and cuDNN's
 times at both batches), the card's name and power limit, and as the
@@ -331,7 +343,9 @@ PEAK_BYTES_S = 3.35e12
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
 SASS_FORBIDDEN = ("HMMA",)
 BF16_INSTANTIATIONS = 12  # conv3x3_bf16_wgmma<N, K chunk>: N 32/64/128/192 x chunk 16/32/64
-F32_INSTANTIATIONS = 8  # conv3x3_f32_3xtf32_wgmma<N, K chunk>: N 32/64 x chunk 8/16/32, N 96 x 8/16
+# conv3x3_f32_3xtf32_wgmma<N, K chunk, round taps>: N 32/64 x chunk 8/16/32, N 96 x 8/16 with each K chunk's sum
+# rounded into the total, and N 32/64/96 x chunk 8 with each tap's (the folded BatchNorm sequences' launches)
+F32_INSTANTIATIONS = 11
 # max |kernel - plain| <= F32_RTOL * max|plain|: the f32 kernel's 3xTF32
 # products lie ~2^-21 from f32 ones and its f32 sums run in another order
 # than cuDNN's (TF32 off)
@@ -496,6 +510,16 @@ REG_GRAD_RTOL = 1e-5
 # what ``ops.conv.chain_route`` names the float32 kernel on a card
 F32_ROUTE = "conv3x3_f32_3xtf32_wgmma"
 
+# phase 15: eval-mode BatchNorm folded into the float32 kernel
+FOLD_KERNEL = "fold_bn_pack_f32"
+FOLD_TEST = "tests/test_torch_fold_card.py"
+FOLD_TIMED_CALLS = 5
+# a phiseg_7_5_12 image evaluated: the sample's 67 stages in 35 BatchNorm sequences, the eval-mode loss's 106 in 51;
+# a ProbUNet image: the prior's encoder (7 sequences of 3) in the sample, both encoders in the loss
+PHISEG_FOLDED = (67, 106)
+PHISEG_FOLD_LAUNCHES = 35 + 51
+PROB_FOLDED = (21, 42)
+
 # phase 10: PHiSeg3D and BraTS
 BRATS_EXPERIMENT = "phiseg_brats"
 BRATS_PARITY_SIZE = (32, 32, 32)  # phase 10 (a): the card against the CPU at a cut volume
@@ -586,14 +610,15 @@ CLI_VALIDATION_IMAGES = 2
 CLI_TEST_SAMPLES = 4  # eval --num-samples
 GENERATED = (10, 10)  # generate_images: images, samples each (the method's defaults, as the JAX CLI)
 # (run, registered experiment, changes, iterations (one validation at the last), launches a step, launches
-# an evaluated image, launches a generated image); the conv chain runs in the U-Net and ProbUNet's trunk
+# an evaluated image, launches a generated image); the conv chain runs in the U-Net and ProbUNet's trunk, and
+# in float32 evaluations (one sample fold an image) every 2D BatchNorm sequence folded into it (phase 15)
 CLI_RUNS = (
     ("unet", "unet", {}, 2, 21, 21, 21),
     ("unet_bf16", "unet", {"dtype": "bfloat16", "experiment_name": "Unet_bf16"}, 2, 21, 21, 21),
     # an early ProbUNet validation's KL is NaN (phase 9 (g)): validated after 4 steps, as the harness does
-    ("prob_unet", "prob_unet", {}, 4, 39, 78, 39),
-    ("phiseg_7_5_12", "phiseg_7_5_12", {}, 2, 0, 0, 0),
-    ("phiseg_uzh_7_5_192", "phiseg_uzh_7_5_192", {}, 2, 0, 0, 0),
+    ("prob_unet", "prob_unet", {}, 4, 39, 78 + sum(PROB_FOLDED), 39 + PROB_FOLDED[0]),
+    ("phiseg_7_5_12", "phiseg_7_5_12", {}, 2, 0, sum(PHISEG_FOLDED), PHISEG_FOLDED[0]),
+    ("phiseg_uzh_7_5_192", "phiseg_uzh_7_5_192", {}, 2, 0, sum(PHISEG_FOLDED), PHISEG_FOLDED[0]),
     ("phiseg_brats", "phiseg_brats", {}, 2, 0, 0, 0),
 )
 NATIVE_STEPS = 3  # (b): steps of the native-loader and the h5py-loader run, bit-identical
@@ -724,9 +749,13 @@ def cudnn_chain(x, ks, bs):
 
 
 def kernel_name(mangled: str) -> str:
-    """conv3x3_bf16_wgmma<BN, KC> or conv3x3_f32_3xtf32_wgmma<BN, KC> from a mangled name."""
-    m = re.search(r"(conv3x3_bf16_wgmma|conv3x3_f32_3xtf32_wgmma)ILi(\d+)ELi(\d+)E", mangled)
-    return f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else mangled
+    """conv3x3_bf16_wgmma<BN, KC>, conv3x3_f32_3xtf32_wgmma<BN, KC, ROUND_TAPS>
+    or fold_bn_pack_f32 from a mangled name."""
+    m = re.search(r"(conv3x3_bf16_wgmma|conv3x3_f32_3xtf32_wgmma)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", mangled)
+    if m:
+        taps = "" if m.group(4) is None else ("," + ("true" if m.group(4) == "1" else "false"))
+        return f"{m.group(1)}<{m.group(2)},{m.group(3)}{taps}>"
+    return FOLD_KERNEL if FOLD_KERNEL in mangled else mangled
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -762,7 +791,8 @@ def find_cuobjdump():
 
 def sass_check(lib_path, build_log: str) -> dict:
     """Every bf16 and f32 kernel instantiation issues wgmma and TMA loads and
-    no mma.sync, and no other kernel is there (the f32 CUDA-core kernel
+    no mma.sync, and no other kernel is there but the eval-mode BatchNorm
+    fold (``fold_bn_pack_f32``, no mma.sync either; the f32 CUDA-core kernel
     ``conv3x3_f32_fma`` is gone): read from the machine code (cuobjdump
     -sass) where the toolkit has cuobjdump, else from the ptxas log (each
     entry compiled for sm_90a, which alone has wgmma, and no wgmma
@@ -774,7 +804,8 @@ def sass_check(lib_path, build_log: str) -> dict:
         for family, n in want.items():
             got = [e for e in entries if e.startswith(family + "<")]
             check(len(got) == n, f"ptxas compiled {len(got)} {family} kernels for sm_90a, expected {n}")
-        check(len(entries) == sum(want.values()), f"ptxas compiled other kernels too: {entries}")
+        check(len(entries) == sum(want.values()) + 1 and FOLD_KERNEL in entries,
+              f"ptxas compiled other kernels too: {entries}")
         log(f"[sass] no cuobjdump: ptxas compiled {len(entries)} wgmma kernels for sm_90a, none serialized")
         return {e: {} for e in entries}
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
@@ -791,12 +822,13 @@ def sass_check(lib_path, build_log: str) -> dict:
     for family, n in want.items():
         got = [k for k in counts if k.startswith(family + "<")]
         check(len(got) == n, f"{len(got)} {family} kernels in the library's machine code, expected {n}")
-    check(len(counts) == sum(want.values()) and "conv3x3_f32_fma" not in sass,
+    check(len(counts) == sum(want.values()) + 1 and FOLD_KERNEL in counts and "conv3x3_f32_fma" not in sass,
           f"other kernels in the library's machine code: {sorted(counts)}")
     for k, v in counts.items():
         log(f"[sass] {k}: " + ", ".join(f"{op} {n}" for op, n in v.items()))
-        check(all(v[op] > 0 for op in SASS_REQUIRED) and not any(v[op] for op in SASS_FORBIDDEN),
-              f"{k}: machine code {v}, needs {SASS_REQUIRED} and none of {SASS_FORBIDDEN}")
+        required = () if k == FOLD_KERNEL else SASS_REQUIRED
+        check(all(v[op] > 0 for op in required) and not any(v[op] for op in SASS_FORBIDDEN),
+              f"{k}: machine code {v}, needs {required} and none of {SASS_FORBIDDEN}")
     return counts
 
 
@@ -3542,7 +3574,7 @@ def cli_runs(conv_chain, dev, card: str, workdir: str, sys_json: str, log_root: 
             losses = [json.loads(line)["loss"] for line in f]
         check(len(losses) == iterations and all(math.isfinite(v) for v in losses), f"{run}: losses {losses}")
         route = {"float32": "conv3x3_f32_3xtf32_wgmma", "bfloat16": "conv3x3_bf16_wgmma"}[cfg.dtype] \
-            if per_step else "none (BatchNorm or reversible sequences)"
+            if per_step or per_image else "none (BatchNorm or reversible sequences)"
         log(f"[cli] {run} ({name}, {cfg.dtype}, {cfg.effective_reversible_mode}, bs{cfg.batch_size}, "
             f"{'x'.join(map(str, cfg.image_size))}): train {iterations} steps + 1 validation {train_s:.2f} s "
             f"(of it the cache build {built:.2f} s), eval (test 1 repeat x {n_eval} x {CLI_TEST_SAMPLES} "
@@ -3771,6 +3803,90 @@ def cli_phase(conv_chain, dev, card: str, log_root: str) -> dict:
             "seconds": took}
 
 
+def fold_phase(conv_chain, dev, card: str, log_dir: str) -> dict:
+    """15: (a) FOLD_TEST in a subprocess, every test run and passed; (b)
+    one phiseg_7_5_12 image at EVAL_SAMPLES samples on the folded route and
+    on the library route (``ConvSeq.folds`` patched off), the same weights,
+    image and draws: ms an image, host ms, device ms of the decode and of
+    the eval-mode loss, launches; then the fold's device ms over the
+    model's BatchNorm sequences against its bound (bytes)."""
+    from unet_zoo_tpu_torch.experiments import get_experiment
+    from unet_zoo_tpu_torch.ops import conv as conv_ops
+    from unet_zoo_tpu_torch.training import Trainer
+
+    t0 = time.perf_counter()
+    # pyproject's addopts give -q: the summary line is the output's last
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", FOLD_TEST],
+                          cwd=REPO, capture_output=True, text=True, timeout=1500)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""
+    log(f"[fold] {FOLD_TEST}: {summary} ({time.perf_counter() - t0:.1f} s) | card: {card}")
+    check(proc.returncode == 0 and "passed" in summary and "skipped" not in summary,
+          f"{FOLD_TEST}: exit {proc.returncode}\n{proc.stdout[-8000:]}\n{proc.stderr[-2000:]}")
+
+    cfg = get_experiment(PHISEG_EXPERIMENT)
+    trainer = Trainer(cfg, dev, seed=0, log_dir=log_dir)
+    model = trainer.state.model
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((1, IMAGE, IMAGE, 1), generator=gen, device=dev)
+    y_all = torch.randint(0, cfg.n_classes, (EVAL_ANNOTATORS, IMAGE, IMAGE), generator=gen, device=dev)
+    result = {}
+    for route in ("folded", "library"):
+        off = mock.patch.object(conv_ops.ConvSeq, "folds", lambda self, x: False)
+        with off if route == "library" else contextlib.nullcontext():
+            trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES)  # warm-up: cuDNN's timed choices
+            torch.cuda.synchronize()
+            launches, folds = conv_chain.launches, conv_chain.fold_launches
+            out = trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES, index=1)
+            torch.cuda.synchronize()
+            counts = (conv_chain.launches - launches, conv_chain.fold_launches - folds)
+            walls, hosts = [], []
+            for i in range(FOLD_TIMED_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.eval_image(x, y_all, y_all[:1], EVAL_SAMPLES, index=i + 2)
+                hosts.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            draws = lambda: torch.Generator(device=dev).manual_seed(5)  # noqa: E731
+            model.eval()
+            with torch.inference_mode():
+                sample_ms = device_ms(lambda: model.sample(x, EVAL_SAMPLES, generator=draws()), 1)
+                loss_ms = device_ms(lambda: model.loss(model(x, y_all[:1], generator=draws()), y_all[:1]), 1)
+            model.train()
+        result[route] = {"ms": min(walls), "host_ms": min(hosts), "sample_ms": sample_ms, "loss_ms": loss_ms,
+                         "launches": counts[0], "fold_launches": counts[1], "ged": out["ged"].item(),
+                         "ncc": out["ncc"].item(), "loss": out["loss"].item()}
+        log(f"[fold] {PHISEG_EXPERIMENT} f32 {EVAL_SAMPLES}-sample evaluation of one image, {route} route: "
+            f"{min(walls):.3f} ms an image (min of {FOLD_TIMED_CALLS} fenced calls, median "
+            f"{sorted(walls)[FOLD_TIMED_CALLS // 2]:.3f}), host issue {min(hosts):.3f} ms; device ms: sample(x, "
+            f"{EVAL_SAMPLES}) {sample_ms:.3f}, eval-mode loss {loss_ms:.3f}; {counts[0]} launches of {F32_ROUTE}, "
+            f"{counts[1]} of {FOLD_KERNEL}; GED {out['ged'].item():.6f} NCC {out['ncc'].item():.6f} loss "
+            f"{out['loss'].item():.4f} | card: {card}")
+    folded, library = result["folded"], result["library"]
+    check((folded["launches"], folded["fold_launches"]) == (sum(PHISEG_FOLDED), PHISEG_FOLD_LAUNCHES)
+          and (library["launches"], library["fold_launches"]) == (0, 0), f"launches {result}")
+    # the fold alone: each BatchNorm sequence of the model once, one launch each
+    seqs = [m for m in model.modules() if isinstance(m, conv_ops.ConvSeq) and m.norm]
+    jobs, nbytes = [], 0
+    for m in seqs:
+        stages = [(c.conv.weight, c.conv.bias, c.bn.weight, c.bn.bias, c.bn.running_mean, c.bn.running_var, c.bn.eps)
+                  for c in m.children()]
+        packed = [torch.zeros(conv_chain.packed_shape(*st[0].shape[:2], torch.float32), device=dev) for st in stages]
+        biases = [torch.zeros(st[0].shape[0], device=dev) for st in stages]
+        jobs.append((stages, packed, biases))
+        nbytes += sum(4 * (st[0].numel() + 6 * st[0].shape[0]) for st in stages) + sum(4 * p.numel() for p in packed)
+    fold_ms = device_ms(lambda: [conv_chain.fold_bn_pack(*job) for job in jobs], 3)
+    fold_bound = nbytes / PEAK_BYTES_S * 1e3
+    result["fold"] = {"sequences": len(seqs), "ms": fold_ms, "bound_ms": fold_bound, "bytes": nbytes}
+    log(f"[fold] {FOLD_KERNEL} over the model's {len(seqs)} BatchNorm sequences, one launch each: {fold_ms:.3f} "
+        f"device ms, bound {fold_bound:.3f} ms ({nbytes} bytes at 3.35 TB/s), {fold_bound / fold_ms:.1%} of it "
+        f"| card: {card}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
@@ -3938,8 +4054,12 @@ def main() -> int:
 
         # 14. spatial sharding
         space = space_phase(conv_chain, dev, card, log_root)
+        torch.cuda.empty_cache()
 
-    log(f"[env] phases 1-14 took {time.perf_counter() - started:.1f} s")
+        # 15. eval-mode BatchNorm folded into the float32 kernel
+        fold = fold_phase(conv_chain, dev, card, log_root)
+
+    log(f"[env] phases 1-15 took {time.perf_counter() - started:.1f} s")
     runs = cli["runs"]
     main = blocks[BATCH]
     f32_rows = prob["blocks"]["rows"]["prob_unet"]
@@ -4061,6 +4181,8 @@ def main() -> int:
         "native_build_s": cli["native"]["build_s"],
         "chunked_eval100_ms": cli["chunked"]["ms"],
         "chunked_eval100_peak_mib": cli["chunked"]["peak_mib"],
+        # phase 15: the phiseg_7_5_12 evaluation on the folded and the library route
+        "folded_eval100": fold,
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

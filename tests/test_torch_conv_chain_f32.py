@@ -6,7 +6,9 @@ Here: the tf32 split that ``pack_kernel`` applies to the weights (and the
 kernel, with ``cvt.rna.tf32.f32``, to the activations); the plain 3xTF32
 version of the kernel's arithmetic against the JAX Pallas chain in float32
 (interpret mode); the launch plan at every stage the float32 main path
-runs; and ``Trainer``'s float32 precision setting.
+runs; eval-mode BatchNorm folded into the chain (``fold_bn``,
+``fold_bn_pack``) and the plan at every stage of a PHiSeg evaluation; and
+``Trainer``'s float32 precision setting.
 """
 
 import logging
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_fold_card import EVAL_SEQUENCES, eval_norm_sequence
 from unet_zoo_tpu.ops.pallas import fused_conv_chain as jax_chain
 from unet_zoo_tpu_torch.experiments import ExperimentConfig
 from unet_zoo_tpu_torch.ops.pallas import conv_chain
@@ -228,6 +231,126 @@ def test_f32_packed_layout_matches_the_plan():
         packed = conv_chain.pack_kernel(k, torch.float32)
         assert tuple(packed.shape) == conv_chain.packed_shape(40, ci, torch.float32) == (2, 64, 3, 3, packed.shape[-1])
         assert packed.shape[-1] == conv_chain.f32_launch_plan((2, 8, 8, ci), 40).ci_pad
+
+
+# ---------------------------------------------------------------------------
+# (d) eval-mode BatchNorm folded into the chain
+# ---------------------------------------------------------------------------
+
+# (C_in, C_out) of a PHiSeg evaluation's stages, from the image's 1 and 3 channels and the z's 2 up to 384
+FOLD_CHANNELS = [(1, 32), (2, 64), (3, 32), (32, 64), (64, 128), (128, 192), (192, 192), (224, 128), (256, 256),
+                 (320, 192), (384, 192)]
+# folding moves each product's rounding: conv(x, k * s) against conv(x, k) * s, sums of up to 9 * 384 products
+FOLD_RTOL = 1e-5
+
+
+def _conv_bn(ci: int, co: int, seed: int):
+    """conv -> eval-mode BatchNorm -> ReLU with non-trivial running statistics."""
+    return eval_norm_sequence(ci, co, 1, seed).conv0
+
+
+def _fold_args(layer) -> tuple:
+    bn = layer.bn
+    return layer.conv.weight, layer.conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
+
+
+@pytest.mark.parametrize("ci,co", FOLD_CHANNELS)
+def test_folded_stage_is_conv_bn_relu(ci, co):
+    """The chain's stage on the folded kernel and bias gives conv ->
+    eval-mode BatchNorm -> ReLU within f32 rounding."""
+    layer = _conv_bn(ci, co, seed=ci * 7 + co)
+    x = torch.from_numpy(np.random.default_rng(ci).standard_normal((2, 6, 5, ci)).astype(np.float32))
+    with torch.no_grad():
+        want = layer(x)
+        kernel, bias = conv_chain.fold_bn(*_fold_args(layer))
+        got = conv_chain.fused_conv_chain(x, [kernel], [bias])
+    assert (got - want).abs().max() <= FOLD_RTOL * want.abs().max()
+
+
+def _kernel_fold_pack(args, co_pad: int, ci_pad: int) -> tuple:
+    """``fold_bn_pack_f32``'s arithmetic in numpy, thread by thread: element e
+    of a half decodes to (output channel, tap, input channel) and reads the
+    OIHW kernel at ((o * C_in + c) * 9 + tap); every operation rounded to
+    float32 on its own."""
+    w, b, gamma, beta, mean, var = (t.detach().numpy() for t in args[:6])
+    co, ci = w.shape[:2]
+    e = np.arange(co_pad * 9 * ci_pad)
+    c, tap, o = e % ci_pad, e // ci_pad % 9, e // (9 * ci_pad)
+    real = (o < co) & (c < ci)
+    s = gamma / np.sqrt(var + np.float32(args[6]))
+    wf = np.zeros(e.shape, np.float32)
+    wf[real] = w.reshape(-1)[(o[real] * ci + c[real]) * 9 + tap[real]] * s[o[real]]
+
+    def tf32(v):
+        return ((v.view(np.uint32) + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+    hi = tf32(wf)
+    return np.stack([hi, tf32(wf - hi)]), (b - mean) * s + beta
+
+
+@pytest.mark.parametrize("ci,co", FOLD_CHANNELS)
+def test_fold_bn_pack_is_pack_kernel_of_the_folded_kernel(ci, co):
+    """``fold_bn_pack`` (the plain version on the CPU) writes
+    ``split_tf32`` of the folded kernel into the packed layout and the
+    folded bias, bit for bit, padding zero; and the CUDA kernel's
+    arithmetic and indexing, written out in numpy, give the same bits."""
+    layers = [_conv_bn(ci, co, seed=ci + co), _conv_bn(co, co, seed=ci + co + 1)]
+    packed = [torch.zeros(conv_chain.packed_shape(co, c, torch.float32)) for c in (ci, co)]
+    biases = [torch.full((co,), float("nan")) for _ in layers]
+    conv_chain.fold_bn_pack([_fold_args(layer) for layer in layers], packed, biases)
+    for layer, p, b in zip(layers, packed, biases):
+        args = _fold_args(layer)
+        kernel, bias = conv_chain.fold_bn(*args)
+        c_in = kernel.shape[1]
+        assert torch.equal(p.view(torch.int32), conv_chain.pack_kernel(kernel, torch.float32).view(torch.int32))
+        for half, want in zip(p, conv_chain.split_tf32(kernel)):
+            assert torch.equal(half[:co, :, :, :c_in], want.permute(0, 2, 3, 1))
+            assert not half[co:].any() and not half[:, :, :, c_in:].any()
+        assert torch.equal(b.view(torch.int32), bias.detach().view(torch.int32))
+        want_packed, want_bias = _kernel_fold_pack(args, p.shape[1], p.shape[-1])
+        np.testing.assert_array_equal(p.numpy().reshape(2, -1).view(np.int32), want_packed.view(np.int32))
+        np.testing.assert_array_equal(b.numpy().view(np.int32), want_bias.view(np.int32))
+
+
+def test_fold_bn_pack_checks_its_inputs():
+    layer = _conv_bn(3, 8, seed=1)
+    args = _fold_args(layer)
+    with pytest.raises(ValueError, match="a packed kernel and a bias per stage"):
+        conv_chain.fold_bn_pack([args], [], [])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        conv_chain.fold_bn_pack([args], [torch.zeros(conv_chain.packed_shape(8, 3, torch.float32), device="meta")],
+                                [torch.zeros(8, device="meta")])
+
+
+@pytest.mark.parametrize("batch,size,ci,cos", EVAL_SEQUENCES)
+def test_f32_launch_plan_of_the_phiseg_evaluation(batch, size, ci, cos):
+    """Every stage of a PHiSeg evaluation's folded sequences (the samples
+    folded into batch 100, the trunk and the eval-mode loss at batch 1) has
+    a plan the kernel takes, with the plan's own K chunk and with the
+    8-channel chunk that a ``round_taps`` launch takes."""
+    for c_in, co in zip((ci,) + cos[:-1], cos):
+        shape = (batch, size, size, c_in)
+        _assert_f32_plan_fits_the_card(conv_chain.f32_launch_plan(shape, co), shape, co)
+        p = conv_chain.f32_launch_plan(shape, co, round_taps=True)
+        _assert_f32_plan_fits_the_card(p, shape, co)
+        assert p.chunk == conv_chain.ROUND_TAPS_CHUNK == 8
+        own = conv_chain.f32_launch_plan(shape, co)
+        assert (p.block_n, p.warpgroups, p.tile_h, p.tile_w, p.n_img) == (own.block_n, own.warpgroups, own.tile_h,
+                                                                        own.tile_w, own.n_img)
+
+
+@pytest.mark.parametrize("shape,co", [((12, 128, 128, 32), 32), ((100, 16, 16, 384), 192), ((1, 2, 2, 64), 64),
+                                      ((12, 64, 64, 1), 32), ((56, 32, 32, 96), 96), ((100, 128, 128, 3), 32),
+                                      ((100, 8, 8, 256), 256), ((1, 128, 128, 48), 64), ((12, 4, 4, 160), 128)])
+def test_f32_launch_plan_with_round_taps(shape, co):
+    """A ``round_taps`` plan takes 8-channel K chunks (ROUND_TAPS_CHUNK),
+    fits the card, and keeps the plan's own tile and channel block."""
+    own = conv_chain.f32_launch_plan(shape, co)
+    p = conv_chain.f32_launch_plan(shape, co, round_taps=True)
+    _assert_f32_plan_fits_the_card(p, shape, co)
+    assert p.chunk == conv_chain.ROUND_TAPS_CHUNK
+    assert (p.block_n, p.warpgroups, p.tile_h, p.tile_w, p.n_img) == (own.block_n, own.warpgroups, own.tile_h,
+                                                                    own.tile_w, own.n_img)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ import torch
 
 import optax
 
+from test_torch_fold_card import eval_norm_sequence
 from unet_zoo_tpu import ops as jops
 from unet_zoo_tpu.ops import init as jinit
 from unet_zoo_tpu.ops.norm import BatchNorm as JaxBatchNorm
@@ -304,6 +305,84 @@ class TestConvSeqNorm:
         want = np.asarray(optax.apply_updates(jp, updates))
         np.testing.assert_allclose(layer.conv.bias.detach().numpy(), want, rtol=2.0 ** -23, atol=1e-4 * 1e-3)
         assert np.all(np.abs(want - p0) > 0.9e-3)  # about lr * sign(p)
+
+
+class _Space:
+    def __init__(self, sharded):
+        self.sharded = sharded
+
+    def is_sharded(self, x):
+        return self.sharded
+
+
+# (case, what differs from an eval-mode float32 2D sequence on a card without autograd, folds)
+_ROUTE_CASES = [
+    ("eval_f32_cuda", {}, True),
+    ("train", {"train": True}, False),
+    ("one_bn_in_train_mode", {"train_bn": 1}, False),
+    ("bf16", {"dtype": torch.bfloat16}, False),
+    ("bf16_input_f32_compute", {"x_dtype": torch.bfloat16}, True),
+    ("cpu", {"device": "cpu"}, False),
+    ("5d", {"ndim": 3}, False),
+    ("grad_records", {"grad": True}, False),
+    ("grad_mode_nothing_requires_grad", {"grad": True, "frozen": True}, True),
+    ("grad_mode_input_requires_grad", {"grad": True, "frozen": True, "x_grad": True}, False),
+    ("sharded", {"space": _Space(True)}, False),
+    ("space_level_replicated", {"space": _Space(False)}, True),
+    ("norm_false", {"norm": False}, False),
+]
+
+
+class TestConvSeqFold:
+    @pytest.mark.parametrize("case,change,folds", _ROUTE_CASES, ids=[c[0] for c in _ROUTE_CASES])
+    def test_route_decision(self, case, change, folds, monkeypatch):
+        """``ConvSeq.folds`` by what the call can observe: BatchNorm in eval
+        mode everywhere, autograd not recording, the f32 kernel's route (the
+        device given to ``chain_route``), 2D, not spatially sharded."""
+        from unet_zoo_tpu_torch.ops import conv
+
+        route = conv.chain_route
+        device = change.get("device", "cuda")
+        monkeypatch.setattr(conv, "chain_route", lambda dtype, _: route(dtype, device))
+        monkeypatch.setattr(conv.space_lib, "current", lambda: change.get("space"))
+        ndim = change.get("ndim", 2)
+        if change.get("norm", True):
+            seq = eval_norm_sequence(3, 4, 2, seed=30, dtype=change.get("dtype", torch.float32), ndim=ndim)
+        else:
+            seq = ops.ConvSeq(3, 4, 2, dtype=torch.float32).eval()
+        if change.get("train"):
+            seq.train()
+        if "train_bn" in change:
+            list(seq.children())[change["train_bn"]].bn.train()
+        if change.get("frozen"):
+            seq.requires_grad_(False)
+        x = torch.zeros((2,) + (5,) * ndim + (3,), dtype=change.get("x_dtype", torch.float32),
+                        requires_grad=change.get("x_grad", False))
+        with torch.set_grad_enabled(change.get("grad", False)):
+            assert seq.folds(x) is folds
+
+    @pytest.mark.parametrize("ci,co,depth", [(3, 8, 3), (2, 4, 2), (8, 8, 1)])
+    def test_eval_sequence_on_the_cpu_is_its_layers(self, ci, co, depth, monkeypatch):
+        """On the CPU an eval-mode BatchNorm sequence does not fold: its output
+        is its conv -> BatchNorm -> ReLU layers' bit for bit, and nothing
+        folds or launches."""
+        from unet_zoo_tpu_torch.ops import conv
+        from unet_zoo_tpu_torch.ops.pallas import conv_chain
+
+        def no_fold(*a, **k):
+            raise AssertionError("folded on the CPU")
+
+        monkeypatch.setattr(conv, "fold_bn_pack", no_fold)
+        seq = eval_norm_sequence(ci, co, depth, seed=31)
+        x = torch.from_numpy(_np(np.random.default_rng(32), 2, 7, 6, ci))
+        launches, folds = conv_chain.launches, conv_chain.fold_launches
+        with torch.inference_mode():
+            got = seq(x)
+            want = x
+            for layer in seq.children():
+                want = torch.relu(layer.bn(layer.conv(want)))
+        assert torch.equal(got, want)
+        assert (conv_chain.launches, conv_chain.fold_launches) == (launches, folds)
 
 
 class TestInit:

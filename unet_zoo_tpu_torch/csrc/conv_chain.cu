@@ -175,6 +175,7 @@ __device__ __forceinline__ int64_t pixel_index(const Shape& s, int b, int h, int
 // ---------------------------------------------------------------- bf16, TMA + wgmma
 
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have on an H100
+constexpr int ROUND_TAPS_KC = 8;    // the K chunk of the f32 kernel's round_taps launches
 constexpr int HALO_STAGES_MAX = 4;
 constexpr int WEIGHT_STAGES_MAX = 54;  // 6 resident chunks; (2 * 4 + 2 * 54) mbarriers fit in 1024 bytes
 
@@ -617,6 +618,25 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
   return r;
 }
 
+// One tap's A fragments of a KC-channel chunk: this lane's halo row at byte
+// offset pix (before the swizzle of 4 * KC-byte rows) read with ldmatrix and
+// split into tf32 hi and lo halves in registers.
+template <int KC>
+__device__ __forceinline__ void split_a(uint32_t halo, uint32_t pix, uint32_t (&hi)[KC / 8][4],
+                                        uint32_t (&lo)[KC / 8][4]) {
+#pragma unroll
+  for (int k = 0; k < KC / 8; ++k) {
+    uint32_t a[4];
+    ldmatrix_x4(a, halo + swizzle<KC * 2>(pix + k * 32));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = __uint_as_float(a[i]);
+      hi[k][i] = to_tf32(v);
+      lo[k][i] = to_tf32(v - __uint_as_float(hi[k][i]));
+    }
+  }
+}
+
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
                                             int c2) {
   asm volatile(
@@ -729,7 +749,18 @@ __device__ void load_halo_plain_f32(const float* __restrict__ x, const Geo& g, u
 // * consumer warp w owns tile rows m = 16 w .. 16 w + 15, a row being a
 //   pixel of the folded tile (image, row, column); padding rows read pixel 0
 //   and are never stored.
-template <int BN, int KC>
+// With ROUND_TAPS each tap of a chunk sums into acc from zero and acc into
+// total with a rounded f32 add once the tap's wgmmas are done (the next
+// tap's A split while they run): 3 * KC / 8 tensor-core accumulations
+// between roundings in place of 27 * KC / 8; launched with KC = 8, three.
+// The tensor cores truncate as they accumulate, so their error is a bias,
+// which an eval-mode BatchNorm folded into the kernel multiplies by its
+// channel's |running mean| / std of the conv (1-3.5 in PHiSeg) and PHiSeg's
+// depth compounds: with chunk sums its 100-sample evaluation's NCC and KL
+// left the limits of the benchmark's float32 reference by up to 2.4x and
+// 3.5x; with rounded taps of 8 channels they read at or under cuDNN's
+// strict-f32 route's, for about 1.9x of the kernel's time.
+template <int BN, int KC, bool ROUND_TAPS>
 __global__ void __launch_bounds__(288, 1)
     conv3x3_f32_3xtf32_wgmma(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
                              const float* __restrict__ x, const float* __restrict__ bias, float* __restrict__ out,
@@ -828,6 +859,46 @@ __global__ void __launch_bounds__(288, 1)
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
       mbar_wait(halo_full(hs), hph);
       const uint32_t halo = halo0 + hs * pipe.halo_stride;
+      if constexpr (ROUND_TAPS) {
+        // each tap sums into acc from zero and acc into total with a rounded
+        // f32 add once its wgmmas are done; the next tap's A is split while
+        // they run, into the other half of hi/lo
+        uint32_t hi[2][KSTEPS][4], lo[2][KSTEPS][4];
+        split_a<KC>(halo, lane_off, hi[0], lo[0]);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int a = tap & 1;
+          const int stage = pipe.resident ? chunk * 9 + tap : ws;
+          mbar_wait(weight_full(stage), pipe.resident ? 0 : wph);
+          wgmma_fence();
+          const uint32_t w_hi = weight0 + stage * pipe.weight_bytes;
+          const uint64_t d_hi = weight_desc<SW>(w_hi), d_lo = weight_desc<SW>(w_hi + HALF);
+#pragma unroll
+          for (int k = 0; k < KSTEPS; ++k) {
+            WgmmaTf32<BN>::mma(acc, lo[a][k], d_hi + 2 * k);
+            WgmmaTf32<BN>::mma(acc, hi[a][k], d_lo + 2 * k);
+            WgmmaTf32<BN>::mma(acc, hi[a][k], d_hi + 2 * k);
+          }
+          wgmma_commit();
+          if (tap < 8) split_a<KC>(halo, lane_off + (((tap + 1) / 3) * hw + (tap + 1) % 3) * ROW, hi[a ^ 1], lo[a ^ 1]);
+          wgmma_wait<0>();
+          // the tap's wgmmas are done: its weight stage, after the last tap
+          // the halo stage, are free, and acc may be read
+          if (tap == 8) mbar_arrive(halo_empty(hs));
+          if (!pipe.resident) {
+            mbar_arrive(weight_empty(ws));
+            if (++ws == ws_n) ws = 0, wph ^= 1;
+          }
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            asm volatile("" : "+f"(acc[i])::"memory");
+            total[i] += acc[i];
+            acc[i] = 0.f;
+          }
+        }
+        if (++hs == hs_n) hs = 0, hph ^= 1;
+        continue;
+      }
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {
         const uint32_t pix = lane_off + ((tap / 3) * hw + tap % 3) * ROW;
@@ -907,6 +978,67 @@ __global__ void __launch_bounds__(288, 1)
         }
       }
     }
+  }
+}
+
+// ---------------------------------------------------------------- eval-mode BatchNorm, folded
+//
+// Replaces no TPU kernel: the JAX package runs its BatchNorm sequences as
+// library ops and never reaches its Pallas chain with them. In eval mode a
+// BatchNorm is an affine map a channel, so conv -> BatchNorm -> ReLU is the
+// f32 chain's conv + bias + ReLU with each output channel's kernel scaled by
+// s = gamma / sqrt(running_var + eps) and the bias (b - running_mean) * s +
+// beta. fold_bn_pack_f32 writes, for up to FOLD_STAGES stages of a sequence
+// in one launch (grid y = stage), the scaled kernel in the f32 kernel's
+// packed layout (2, co_pad, 3, 3, ci_pad): its tf32 hi and lo halves, zero
+// past co and ci, as the wrapper's pack_kernel writes them, and the folded
+// bias. It is bound by bytes: each kernel read once and written twice,
+// padded, some 0.3 GB a PHiSeg image (~0.1 ms at 3.35 TB/s). Each operation
+// is the plain version's (fold_bn_pack_reference), rounded on its own (the
+// __f*_rn intrinsics keep nvcc from contracting into FMAs), so the packed
+// halves and the bias equal it bit for bit. The parameters are read on every
+// call: they change in place between calls (Adam, the running statistics).
+
+constexpr int FOLD_STAGES = 4;
+constexpr int FOLD_THREADS = 256;
+constexpr long long FOLD_BLOCKS_MAX = 4096;
+
+struct FoldStage {
+  const float *w, *b, *gamma, *beta, *mean, *var;  // OIHW kernel, conv bias, BatchNorm weight, bias, statistics
+  float *packed, *bias;                            // (2, co_pad, 3, 3, ci_pad) and (co,)
+  int co, ci, co_pad, ci_pad;
+  float eps;
+};
+
+struct FoldArgs {
+  FoldStage s[FOLD_STAGES];
+};
+
+// f32 -> tf32 rounded to nearest, ties away from zero (cvt.rna.tf32.f32), on the bits
+__device__ __forceinline__ float round_tf32(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS) fold_bn_pack_f32(const __grid_constant__ FoldArgs args) {
+  const FoldStage& st = args.s[blockIdx.y];
+  const long long half = static_cast<long long>(st.co_pad) * 9 * st.ci_pad;
+  const long long step = static_cast<long long>(gridDim.x) * FOLD_THREADS;
+  for (long long e = static_cast<long long>(blockIdx.x) * FOLD_THREADS + threadIdx.x; e < half; e += step) {
+    const int c = static_cast<int>(e % st.ci_pad);
+    const int tap = static_cast<int>(e / st.ci_pad % 9);
+    const int o = static_cast<int>(e / (9LL * st.ci_pad));
+    float hi = 0.f, lo = 0.f;
+    if (o < st.co) {
+      const float s = __fdiv_rn(st.gamma[o], __fsqrt_rn(__fadd_rn(st.var[o], st.eps)));
+      if (c < st.ci) {
+        const float w = __fmul_rn(st.w[(static_cast<long long>(o) * st.ci + c) * 9 + tap], s);
+        hi = round_tf32(w);
+        lo = round_tf32(__fsub_rn(w, hi));
+      }
+      if (tap == 0 && c == 0) st.bias[o] = __fadd_rn(__fmul_rn(__fsub_rn(st.b[o], st.mean[o]), s), st.beta[o]);
+    }
+    st.packed[e] = hi;
+    st.packed[half + e] = lo;
   }
 }
 
@@ -994,8 +1126,11 @@ int dispatch_n(int block_n, const CUtensorMap& xm, const CUtensorMap& wm, const 
 
 template <int BN, int KC>
 int launch_f32(const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* bias, float* out,
-               const Geo& g, const Pipe& pipe, long long items, int smem, int device, cudaStream_t st) {
-  auto kernel = conv3x3_f32_3xtf32_wgmma<BN, KC>;
+               const Geo& g, const Pipe& pipe, long long items, int smem, bool round_taps, int device,
+               cudaStream_t st) {
+  auto kernel = conv3x3_f32_3xtf32_wgmma<BN, KC, false>;
+  if constexpr (KC == ROUND_TAPS_KC)  // conv3x3_bias_relu_f32 takes round_taps with this chunk only
+    if (round_taps) kernel = conv3x3_f32_3xtf32_wgmma<BN, KC, true>;
   const int threads = 32 * g.warps + 32;
   unsigned grid = 0;
   if (const int err = persistent_grid(kernel, device, threads, smem, items, &grid)) return err;
@@ -1005,13 +1140,14 @@ int launch_f32(const CUtensorMap& xm, const CUtensorMap& wm, const float* x, con
 
 template <int KC>
 int dispatch_n_f32(int block_n, const CUtensorMap& xm, const CUtensorMap& wm, const float* x, const float* bias,
-                   float* out, const Geo& g, const Pipe& pipe, long long items, int smem, int device,
-                   cudaStream_t st) {
+                   float* out, const Geo& g, const Pipe& pipe, long long items, int smem, bool round_taps,
+                   int device, cudaStream_t st) {
   switch (block_n) {
-    case 32: return launch_f32<32, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
-    case 64: return launch_f32<64, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
+    case 32: return launch_f32<32, KC>(xm, wm, x, bias, out, g, pipe, items, smem, round_taps, device, st);
+    case 64: return launch_f32<64, KC>(xm, wm, x, bias, out, g, pipe, items, smem, round_taps, device, st);
     case 96:  // at most 16-channel chunks: see f32_launch_plan
-      if constexpr (KC <= 16) return launch_f32<96, KC>(xm, wm, x, bias, out, g, pipe, items, smem, device, st);
+      if constexpr (KC <= 16)
+        return launch_f32<96, KC>(xm, wm, x, bias, out, g, pipe, items, smem, round_taps, device, st);
       return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1093,19 +1229,21 @@ extern "C" int conv3x3_bias_relu_bf16(const void* x, const void* w, const void* 
 // float32, the kernel's tf32 hi and lo halves, zero past co and ci; bias
 // is float32 (co,). The plan (chunk, block_n, tile_h, tile_w, n_img, warps,
 // halo_stages, weight_stages, smem_bytes, tma, resident) comes from the
-// wrapper's f32_launch_plan and is checked here. Returns as the bf16 entry.
+// wrapper's f32_launch_plan and is checked here; round_taps (with chunk 8)
+// rounds each tap's sum into the total (ROUND_TAPS) in place of each
+// chunk's. Returns as the bf16 entry.
 extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* bias, void* out, int batch,
                                      int height, int width, int ci, int ci_pad, int co, int co_pad, int chunk,
                                      int block_n, int tile_h, int tile_w, int n_img, int warps, int halo_stages,
-                                     int weight_stages, int smem_bytes, int tma, int resident, int device,
-                                     void* stream) {
+                                     int weight_stages, int smem_bytes, int tma, int resident, int round_taps,
+                                     int device, void* stream) {
   const bool chunk_ok = chunk == 8 || chunk == 16 || chunk == 32;
   const bool n_ok = block_n == 32 || block_n == 64 || block_n == 96;
   if (batch <= 0 || height <= 0 || width <= 0 || ci <= 0 || co <= 0 || !chunk_ok || !n_ok || ci_pad < ci ||
       ci_pad % chunk != 0 || co_pad < co || (warps != 4 && warps != 8) || tile_h < 1 || tile_w < 1 || n_img < 1 ||
       tile_w + 2 > 256 || tile_h + 2 > 256 || n_img > 256 || n_img * tile_h * tile_w > 16 * warps ||
       halo_stages < 1 || halo_stages > HALO_STAGES_MAX || weight_stages < 2 || weight_stages > WEIGHT_STAGES_MAX ||
-      (tma && (ci % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)))
+      (tma && (ci % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)) || (round_taps && chunk != ROUND_TAPS_KC))
     return static_cast<int>(cudaErrorInvalidValue);
   const int halo_bytes = n_img * (tile_h + 2) * (tile_w + 2) * chunk * 4;
   const Pipe pipe{halo_stages, weight_stages, halo_bytes, round_up(halo_bytes, 1024), 2 * block_n * chunk * 4, tma,
@@ -1154,10 +1292,47 @@ extern "C" int conv3x3_bias_relu_f32(const void* x, const void* w, const void* b
   auto* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (chunk) {
-    case 8: return dispatch_n_f32<8>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
-    case 16: return dispatch_n_f32<16>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
-    default: return dispatch_n_f32<32>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, device, st);
+    case 8: return dispatch_n_f32<8>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, round_taps, device, st);
+    case 16:
+      return dispatch_n_f32<16>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, round_taps, device, st);
+    default:
+      return dispatch_n_f32<32>(block_n, xm, wm, xf, bf, of, g, pipe, items, smem_bytes, round_taps, device, st);
   }
+}
+
+// The eval-mode BatchNorm fold of `n_stages` (1 to FOLD_STAGES) stages in one
+// launch of fold_bn_pack_f32. Stage j reads ptrs[8j .. 8j+5] (the float32 OIHW
+// kernel, conv bias, BatchNorm weight, bias, running mean, running var) and
+// writes ptrs[8j+6] (the packed (2, co_pad, 3, 3, ci_pad) kernel, every
+// element) and ptrs[8j+7] (the folded bias, co); dims[4j .. 4j+3] are (co,
+// ci, co_pad, ci_pad) and eps[j] the BatchNorm's eps. All contiguous float32
+// on `device`. Launches on `stream`; returns 0 or a CUDA error code.
+extern "C" int fold_bn_pack(int n_stages, const void* const* ptrs, const int* dims, const float* eps, int device,
+                            void* stream) {
+  if (n_stages < 1 || n_stages > FOLD_STAGES) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs args{};
+  long long most = 0;
+  for (int j = 0; j < n_stages; ++j) {
+    const void* const* p = ptrs + 8 * j;
+    const int* d = dims + 4 * j;
+    if (d[0] <= 0 || d[1] <= 0 || d[2] < d[0] || d[3] < d[1]) return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < 8; ++k)
+      if (p[k] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    args.s[j] = FoldStage{static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
+                          static_cast<const float*>(p[2]), static_cast<const float*>(p[3]),
+                          static_cast<const float*>(p[4]), static_cast<const float*>(p[5]),
+                          static_cast<float*>(const_cast<void*>(p[6])), static_cast<float*>(const_cast<void*>(p[7])),
+                          d[0], d[1], d[2], d[3], eps[j]};
+    const long long half = static_cast<long long>(d[2]) * 9 * d[3];
+    most = half > most ? half : most;
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  long long blocks = (most + FOLD_THREADS - 1) / FOLD_THREADS;
+  blocks = blocks < FOLD_BLOCKS_MAX ? blocks : FOLD_BLOCKS_MAX;
+  fold_bn_pack_f32<<<dim3(static_cast<unsigned>(blocks), n_stages), FOLD_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* conv_chain_error_string(int code) {

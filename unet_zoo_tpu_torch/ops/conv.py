@@ -9,8 +9,10 @@
 * ``ConvSeq``   — ``depth`` stacked 3x3 ``ConvBNAct``. Without norm (the
                   U-Net block) it runs as the fused conv-chain kernel; with
                   norm (every PHiSeg sequence) as library ops, as in the JAX
-                  package, whose BN sequences never reach its Pallas kernel.
-                  The kernel is 2D: a BN-free 3D sequence raises.
+                  package, whose BN sequences never reach its Pallas kernel,
+                  except where eval-mode BatchNorm folds into the float32
+                  kernel (``ConvSeq.folds``). The kernel is 2D: a BN-free 3D
+                  sequence raises.
 * ``conv_sequence`` — a sequence in one of the memory modes: ``plain``
                   (``ConvSeq``), ``remat`` (the same ``ConvSeq`` under
                   ``remat``, the twin of ``nn.remat``) or ``reversible``
@@ -49,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from unet_zoo_tpu_torch.ops import init as init_lib
 from unet_zoo_tpu_torch.ops.norm import BatchNorm, recomputing
-from unet_zoo_tpu_torch.ops.pallas.conv_chain import conv2d_nhwc, fused_conv_chain, pack_kernel
+from unet_zoo_tpu_torch.ops.pallas.conv_chain import (conv2d_nhwc, fold_bn_pack, fused_conv_chain, pack_kernel,
+                                                      packed_shape)
 from unet_zoo_tpu_torch.parallel import space as space_lib
 from unet_zoo_tpu_torch.utils import profiling
 
@@ -57,12 +60,20 @@ Tensors = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 MEMORY_MODES = ("plain", "remat", "reversible")
 
+F32_ROUTE = "conv3x3_f32_3xtf32_wgmma"
+
 
 def conv_span(x: torch.Tensor, weight: torch.Tensor) -> str:
     """A library convolution's span: ``conv.<in>-<out>.k<k>.<spatial>``, the
     input and output channels, the kernel size and the input's spatial
     shape (``HxW`` or ``DxHxW``)."""
     return "conv.%d-%d.k%d.%s" % (x.shape[-1], weight.shape[0], weight.shape[2], "x".join(map(str, x.shape[1:-1])))
+
+
+def folded_span(x: torch.Tensor, convs: Sequence["Conv"]) -> str:
+    """A folded BatchNorm sequence's span: ``conv.folded.<in>-<out>.d<depth>.<HxW>``."""
+    return "conv.folded.%d-%d.d%d.%s" % (x.shape[-1], convs[-1].weight.shape[0], len(convs),
+                                         "x".join(map(str, x.shape[1:-1])))
 
 
 def chain_route(dtype: torch.dtype, device) -> str:
@@ -73,7 +84,7 @@ def chain_route(dtype: torch.dtype, device) -> str:
     or "plain", the chain's plain version, on the CPU."""
     if torch.device(device).type != "cuda":
         return "plain"
-    return "conv3x3_f32_3xtf32_wgmma" if dtype == torch.float32 else "conv3x3_bf16_wgmma"
+    return F32_ROUTE if dtype == torch.float32 else "conv3x3_bf16_wgmma"
 
 
 def conv3d_ndhwc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, padding: int) -> torch.Tensor:
@@ -201,8 +212,14 @@ class ConvSeq(nn.Module):
     """``depth`` stacked 3x3 conv (+ BatchNorm if ``norm``) + ReLU, with
     ``conv{i}`` parameter paths as in the JAX package.
 
-    With ``norm`` the layers run one by one as library ops. Without it the
-    sequence runs as one fused conv chain: the kernel of
+    With ``norm`` the layers run one by one as library ops, unless the
+    sequence folds (``folds``: eval-mode BatchNorm, autograd not recording,
+    the float32 kernel's route, 2D, not spatially sharded). Then each
+    BatchNorm is folded into its conv (``conv_chain.fold_bn_pack``, one
+    launch) and the sequence runs as one fused conv chain on the float32
+    kernel, a launch a stage, under the span
+    ``uz.conv.folded.<in>-<out>.d<depth>.<HxW>`` (``folded_span``).
+    Without norm the sequence runs as one fused conv chain: the kernel of
     ``ops/pallas/conv_chain.py`` on CUDA, its plain version on the CPU
     (``chain_route``). Gradients reach the float32 ``weight``/``bias``
     parameters on both (``FusedConvChain`` on CUDA). The kernel is 2D: a
@@ -210,9 +227,11 @@ class ConvSeq(nn.Module):
 
     The CUDA chain packs the kernels into the kernel's weight layout in
     buffers allocated once per (dtype, device) and refilled on every
-    forward, one copy per stage. A cache keyed on the parameters' ``_version``
-    would go stale: ``torch.optim.Adam(fused=True)`` updates them in place
-    without bumping it.
+    forward, one copy per stage (a folded sequence: with the folded
+    kernels, beside a buffer of the folded biases). A cache keyed on the
+    parameters' ``_version`` would go stale: ``torch.optim.Adam(fused=True)``
+    updates them in place without bumping it, and the running statistics
+    move between evaluations.
 
     With ``remat`` the sequence runs under ``remat`` (after a tuple input is
     concatenated), with the same parameters: the backward runs it again, so
@@ -233,6 +252,7 @@ class ConvSeq(nn.Module):
                 dtype=dtype, device=device, generator=generator, ndim=ndim,
             ))
         self._packed: Dict[tuple, List[torch.Tensor]] = {}
+        self._fold_biases: Dict[tuple, List[torch.Tensor]] = {}
 
     def _packed_kernels(self, weights: List[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
         key = (dtype, weights[0].device)
@@ -244,8 +264,46 @@ class ConvSeq(nn.Module):
         x = _concat(x)
         return remat(self._run, x) if self.remat else self._run(x)
 
+    def folds(self, x: torch.Tensor) -> bool:
+        """Whether this sequence runs on input ``x`` with its BatchNorms
+        folded into the float32 conv-chain kernel: every BatchNorm in eval
+        mode, autograd not recording (the kernel's gradients would be the
+        folded kernels'), the compute dtype float32 on CUDA (``chain_route``),
+        2D input, and that input not spatially sharded."""
+        if not self.norm or x.ndim != 4 or any(layer.bn.training for layer in self.children()):
+            return False
+        if chain_route(self.dtype or x.dtype, x.device) != F32_ROUTE:
+            return False
+        if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            return False
+        sp = space_lib.current()
+        return sp is None or not sp.is_sharded(x)
+
+    def _folded(self, x: torch.Tensor) -> torch.Tensor:
+        """The sequence with its eval-mode BatchNorms folded: one
+        ``fold_bn_pack`` launch into this module's buffers, then the chain,
+        which on CUDA without autograd runs the packed (folded) kernels and
+        the folded biases; the OIHW weights give it the shapes."""
+        x = x.to(torch.float32).contiguous()
+        convs, bns = [m.conv for m in self.children()], [m.bn for m in self.children()]
+        with profiling.span(folded_span, x, convs):
+            key = (torch.float32, x.device)
+            if key not in self._fold_biases:
+                cos = [c.weight.shape[0] for c in convs]
+                # normal tensors even under inference_mode, as in pack_kernel
+                with torch.inference_mode(False):
+                    self._packed[key] = [torch.zeros(packed_shape(*c.weight.shape[:2], torch.float32), device=x.device)
+                                         for c in convs]
+                    self._fold_biases[key] = list(torch.empty(sum(cos), device=x.device).split(cos))
+            packed, biases = self._packed[key], self._fold_biases[key]
+            fold_bn_pack([(c.weight, c.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+                          for c, bn in zip(convs, bns)], packed, biases)
+            return fused_conv_chain(x, [c.weight for c in convs], biases, packed=packed, round_taps=True)
+
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm:
+            if self.folds(x):
+                return self._folded(x)
             for layer in self.children():
                 x = layer(x)
             return x

@@ -31,6 +31,16 @@ weight gradient cast to f32, the parameters' dtype. Under ``no_grad`` or
 ``inference_mode`` the wrapper launches the stages directly and saves
 nothing.
 
+Eval-mode BatchNorm, folded (``fold_bn_pack``). In eval mode a BatchNorm
+after a conv is an affine map a channel, so conv -> BatchNorm -> ReLU is a
+stage of this chain with the kernel scaled by ``gamma / sqrt(var + eps)``
+per output channel and a folded bias (``fold_bn``). ``fold_bn_pack`` writes
+both, the kernel in ``pack_kernel``'s float32 layout, for the stages of a
+sequence: on CUDA in one launch of ``fold_bn_pack_f32`` (``csrc/conv_chain.cu``)
+a group of up to ``FOLD_STAGES`` stages, on the CPU by its plain version
+``fold_bn_pack_reference``, which the launch equals bit for bit.
+``ops.conv.ConvSeq`` runs its eval-mode BatchNorm sequences this way.
+
 Kernels are OIHW, the port's storage layout (``nn.Conv2d``'s), not the JAX
 package's HWIO.
 """
@@ -51,6 +61,10 @@ from unet_zoo_tpu_torch.ops.pallas import _build
 # Number of kernel launches (one per stage on CUDA tensors). Callers reset it
 # by assignment; the CPU path never moves it.
 launches = 0
+# Number of launches of ``fold_bn_pack_f32`` (one a group of up to
+# FOLD_STAGES stages on CUDA tensors), reset and read as ``launches``.
+fold_launches = 0
+FOLD_STAGES = 4
 
 # The bf16 kernel streams input channels in K chunks of 16, 32 or 64 (the
 # narrowest that holds C_in, else 64 = ``_CI_ALIGN``), so ``pack_kernel``
@@ -65,6 +79,9 @@ F32_CHUNKS = (8, 16, 32)
 # thread of a 288-thread block has, which leaves no room for 128 or 192 (C_out
 # 128 takes two blocks of 64, 192 two of 96)
 F32_BLOCK_NS = (32, 64, 96)
+# the K chunk of a ``round_taps`` launch (``fused_conv_chain``): each tap's
+# three tensor-core accumulations (one k8 step) between f32 roundings
+ROUND_TAPS_CHUNK = 8
 _CI_ALIGN = _CHUNKS[-1]
 _CO_ALIGN = 64
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -247,7 +264,8 @@ def _f32_tile(shape: tuple, warpgroups: int) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def f32_launch_plan(shape: tuple, co: int, aligned: bool = True, warpgroups: Optional[int] = None,
-                    block_n: Optional[int] = None, resident: Optional[bool] = None) -> F32LaunchPlan:
+                    block_n: Optional[int] = None, resident: Optional[bool] = None,
+                    round_taps: bool = False) -> F32LaunchPlan:
     """The plan of one f32 stage on x of NHWC ``shape`` -> ``co`` channels;
     ``aligned`` says whether x's address is a multiple of 16 bytes.
 
@@ -256,8 +274,9 @@ def f32_launch_plan(shape: tuple, co: int, aligned: bool = True, warpgroups: Opt
     narrower channel blocks, whichever first gives the card's SMs an item
     each, else the narrowest (the small images: ProbUNet's 2x2-8x8 levels). The K chunk is the
     widest that divides the padded C_in and leaves room for two weight
-    stages. ``warpgroups``, ``block_n`` and ``resident`` replace the plan's
-    own choices (to time other plans); the rest follows from them.
+    stages, or ``ROUND_TAPS_CHUNK`` for a ``round_taps`` launch. ``warpgroups``,
+    ``block_n`` and ``resident`` replace the plan's own choices (to time
+    other plans); the rest follows from them.
 
     Where the items are fewer than the card's SMs, each block has its SM
     to itself and walks one item: the weight ring then takes all the shared
@@ -283,7 +302,8 @@ def f32_launch_plan(shape: tuple, co: int, aligned: bool = True, warpgroups: Opt
     # at 96 channels a 32-channel chunk's two taps of split A registers do
     # not fit beside the accumulators (ptxas spills)
     widest = min(f32_chunk_width(ci), 16 if block_n == 96 else 32)
-    for chunk in (c for c in reversed(F32_CHUNKS) if c <= widest and ci_pad % c == 0):
+    chunks = [c for c in reversed(F32_CHUNKS) if c <= widest and ci_pad % c == 0]
+    for chunk in [ROUND_TAPS_CHUNK] if round_taps else chunks:
         halo_stride = _round_up(n_img * (tile_h + 2) * (tile_w + 2) * chunk * 4, 1024)
         stage_bytes = 2 * block_n * chunk * 4
         all_weights = 9 * ci_pad // chunk
@@ -384,8 +404,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load()
     lib.conv3x3_bias_relu_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     lib.conv3x3_bias_relu_bf16.restype = ctypes.c_int
-    lib.conv3x3_bias_relu_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+    lib.conv3x3_bias_relu_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
     lib.conv3x3_bias_relu_f32.restype = ctypes.c_int
+    lib.fold_bn_pack.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.fold_bn_pack.restype = ctypes.c_int
     lib.conv_chain_error_string.argtypes = [ctypes.c_int]
     lib.conv_chain_error_string.restype = ctypes.c_char_p
     return lib
@@ -425,10 +448,83 @@ def pack_kernel(kernel: torch.Tensor, dtype: torch.dtype, out: Optional[torch.Te
     return out
 
 
+def fold_bn(kernel: torch.Tensor, bias: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+            mean: torch.Tensor, var: torch.Tensor, eps: float) -> tuple:
+    """Eval-mode BatchNorm (``gamma``, ``beta``, running ``mean`` and ``var``,
+    ``eps``) after a conv (OIHW ``kernel``, ``bias``), folded into the conv:
+    (kernel * s, (bias - mean) * s + beta) with s = gamma / sqrt(var + eps)
+    per output channel, in float32, each operation rounded on its own. The
+    square root is taken in float64 and rounded once: that is the correctly
+    rounded float32 root (``__fsqrt_rn``), which torch's float32 ``sqrt``
+    misses in a few values in a thousand on some CPUs."""
+    s = gamma / torch.sqrt((var + eps).double()).float()
+    return kernel * s[:, None, None, None], (bias - mean) * s + beta
+
+
+def fold_bn_pack_reference(stages: Sequence[tuple], packed: Sequence[torch.Tensor],
+                           biases: Sequence[torch.Tensor]) -> None:
+    """Plain version of ``fold_bn_pack``: each stage's ``fold_bn``, its kernel
+    refilled into ``packed[j]`` by ``pack_kernel`` and its bias copied into
+    ``biases[j]``."""
+    with torch.no_grad():
+        for stage, p, b in zip(stages, packed, biases):
+            kernel, bias = fold_bn(*stage)
+            pack_kernel(kernel, torch.float32, p)
+            b.copy_(bias)
+
+
+def fold_bn_pack(stages: Sequence[tuple], packed: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]) -> None:
+    """Fold each stage's eval-mode BatchNorm into its conv and write the
+    f32 chain's inputs: ``stages[j]`` is ``fold_bn``'s arguments (kernel,
+    bias, gamma, beta, running mean, running var, eps), float32;
+    ``packed[j]`` (``packed_shape(C_out, C_in, torch.float32)``) takes the
+    folded kernel's tf32 halves, every element of it, and ``biases[j]``
+    (C_out,) the folded bias. CPU tensors take ``fold_bn_pack_reference``;
+    CUDA tensors one launch of ``fold_bn_pack_f32`` a group of up to
+    ``FOLD_STAGES`` stages, or raise. Not differentiable."""
+    global fold_launches
+    if len(stages) != len(packed) or len(stages) != len(biases) or not stages:
+        raise ValueError(f"need a packed kernel and a bias per stage, got {len(stages)} stages, "
+                         f"{len(packed)} packed kernels and {len(biases)} biases")
+    device = packed[0].device
+    if device.type == "cpu":
+        return fold_bn_pack_reference(stages, packed, biases)
+    if device.type != "cuda":
+        raise ValueError(f"fold_bn_pack runs on CPU or CUDA tensors, got {device}")
+    lib = _lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for g in range(0, len(stages), FOLD_STAGES):
+        group = range(g, min(g + FOLD_STAGES, len(stages)))
+        ptrs, dims, eps = [], [], []
+        for j in group:
+            kernel, *vectors, e = stages[j]
+            co, ci = kernel.shape[:2]
+            outs = (packed[j], biases[j])
+            if (kernel.shape[2:] != (3, 3) or any(t.shape != (co,) for t in vectors)
+                    or packed[j].shape != packed_shape(co, ci, torch.float32) or biases[j].shape != (co,)):
+                raise ValueError(f"stage {j}: kernel {tuple(kernel.shape)}, vectors "
+                                 f"{[tuple(t.shape) for t in vectors]}, packed {tuple(packed[j].shape)}, "
+                                 f"bias {tuple(biases[j].shape)} do not fit a 3x3 conv and its BatchNorm")
+            for t in (kernel, *vectors, *outs):
+                if t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+                    raise ValueError(f"stage {j}: every tensor must be contiguous float32 on {device}, got "
+                                     f"{t.dtype} on {t.device}, contiguous {t.is_contiguous()}")
+            ptrs += [t.data_ptr() for t in (kernel, *vectors, *outs)]
+            dims += [co, ci, packed[j].shape[1], packed[j].shape[-1]]
+            eps.append(e)
+        err = lib.fold_bn_pack(len(group), (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
+                               (ctypes.c_float * len(eps))(*eps), device.index, stream)
+        if err:
+            raise RuntimeError(f"fold_bn_pack_f32 launch failed for {len(group)} stages: "
+                               f"{lib.conv_chain_error_string(err).decode()}")
+        fold_launches += 1
+
+
 def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor,
-                  plan=None) -> torch.Tensor:
+                  plan=None, round_taps: bool = False) -> torch.Tensor:
     """One stage on the card under ``plan``, by default the stage's
-    ``launch_plan`` (bf16) or ``f32_launch_plan`` (float32)."""
+    ``launch_plan`` (bf16) or ``f32_launch_plan`` (float32); ``round_taps``
+    (float32) rounds each tap's sum into the total (``fused_conv_chain``)."""
     global launches
     lib = _lib()
     batch, height, width, ci = x.shape
@@ -445,10 +541,10 @@ def _launch_stage(x: torch.Tensor, packed: torch.Tensor, bias: torch.Tensor,
             *args, p.chunk, p.block_n, p.tile_h, p.halo_stages, p.weight_stages,
             p.smem_bytes, p.loader == "tma", p.resident, x.device.index, stream)
     else:
-        p = plan or f32_launch_plan(tuple(x.shape), co, aligned)
+        p = plan or f32_launch_plan(tuple(x.shape), co, aligned, round_taps=round_taps)
         err = lib.conv3x3_bias_relu_f32(
             *args, p.chunk, p.block_n, p.tile_h, p.tile_w, p.n_img, 4 * p.warpgroups, p.halo_stages,
-            p.weight_stages, p.smem_bytes, p.loader == "tma", p.resident, x.device.index, stream)
+            p.weight_stages, p.smem_bytes, p.loader == "tma", p.resident, round_taps, x.device.index, stream)
     if err:
         raise RuntimeError(
             f"conv3x3 kernel launch failed for x {tuple(x.shape)} -> {co} channels: "
@@ -503,7 +599,7 @@ class FusedConvChain(torch.autograd.Function):
 
 def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor], relu_last: bool = True,
-                     packed: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+                     packed: Optional[Sequence[torch.Tensor]] = None, round_taps: bool = False) -> torch.Tensor:
     """x: (B, H, W, C0) NHWC, float32 or bfloat16. kernels[j]: (C_{j+1}, C_j, 3, 3)
     OIHW; biases[j]: (C_{j+1},). Returns (B, H, W, C_N) in ``x.dtype``.
 
@@ -512,7 +608,14 @@ def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     ``FusedConvChain`` when autograd records. ``packed`` optionally gives
     ``pack_kernel(k, x.dtype)`` of each kernel, for a caller that keeps the
     buffers across calls; without it the kernels are packed on every call.
-    The CPU path ignores it.
+    The CPU path ignores it. ``round_taps`` has the float32 kernel round
+    each tap's sum into the f32 total, with K chunks of ``ROUND_TAPS_CHUNK``
+    channels: three tensor-core accumulations between f32 roundings in
+    place of up to 108. The tensor cores truncate as they accumulate, a
+    bias that grows with that count and that an eval-mode BatchNorm folded
+    into the kernel amplifies (``ops.conv.ConvSeq``); it costs about 1.9x
+    the kernel's time at a PHiSeg evaluation's shapes. Launches without autograd only; the arithmetic is
+    the plain version's either way.
     """
     if not relu_last:
         raise NotImplementedError("non-ReLU last stage not implemented (nor in the JAX kernel)")
@@ -533,7 +636,9 @@ def fused_conv_chain(x: torch.Tensor, kernels: Sequence[torch.Tensor],
             raise ValueError(f"stage {j}: packed kernel must be contiguous {want} {x.dtype} on "
                              f"{x.device}, got {tuple(w.shape)} {w.dtype} on {w.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *kernels, *biases)):
+        if round_taps:
+            raise NotImplementedError("round_taps launches without autograd only")
         return FusedConvChain.apply(x, packed, *(t for kb in zip(kernels, biases) for t in kb))
     for w, b in zip(packed, biases):
-        x = _launch_stage(x, w, b)
+        x = _launch_stage(x, w, b, round_taps=round_taps)
     return x
