@@ -3,7 +3,7 @@
 On the CPU the port's ``fused_conv_chain`` runs its plain version; both it
 and ``fused_conv_chain_reference`` are held against the JAX
 ``fused_conv_chain`` on the same numpy inputs. The CUDA kernel itself is
-checked on the card by ``chip_smoke.py``.
+checked on the card by ``tests/test_torch_kernel_card.py``.
 """
 
 import jax.experimental.pallas as pl
@@ -239,7 +239,7 @@ def test_function_matches_plain_autograd(monkeypatch):
 _BLOCKS = [(128, 1, 32), (64, 32, 64), (32, 64, 128), (16, 128, 192), (32, 320, 128), (64, 192, 64), (128, 96, 32)]
 # the 21 stages of the main path at the forward's and the train step's batch
 MAIN_STAGES = [(batch, size, cin, co) for batch in (512, 64) for size, ci, co in _BLOCKS for cin in (ci, co, co)]
-# chip_smoke.py's test and edge shapes, stage by stage: (x shape, C_out)
+# the card tests' test and edge shapes (tests/torch_card.py), stage by stage: (x shape, C_out)
 EDGE_STAGES = [
     ((2, 16, 16, 4), 8), ((2, 16, 16, 8), 8), ((1, 8, 8, 2), 4), ((3, 20, 12, 4), 4), ((3, 20, 12, 4), 6),
     ((1, 33, 17, 3), 5), ((1, 33, 17, 5), 5), ((1, 33, 17, 5), 2), ((1, 1, 1, 37), 100), ((2, 5, 40, 9), 65),

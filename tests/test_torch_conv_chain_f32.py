@@ -1,7 +1,8 @@
 """The port's float32 conv-chain kernel around its CUDA code, on the CPU.
 
 The kernel (``conv3x3_f32_3xtf32_wgmma`` in ``csrc/conv_chain.cu``) runs only
-on the card, where ``chip_smoke.py`` holds it against its plain versions.
+on the card, where ``tests/test_torch_kernel_card.py`` holds it against its
+plain versions.
 Here: the tf32 split that ``pack_kernel`` applies to the weights (and the
 kernel, with ``cvt.rna.tf32.f32``, to the activations); the plain 3xTF32
 version of the kernel's arithmetic against the JAX Pallas chain in float32
@@ -25,8 +26,8 @@ from unet_zoo_tpu_torch.experiments import ExperimentConfig
 from unet_zoo_tpu_torch.ops.pallas import conv_chain
 from unet_zoo_tpu_torch.training import Trainer
 
-# max|3xTF32 - JAX f32| <= F32_RTOL * max|JAX f32| (chip_smoke.py's gate for
-# the kernel): each product lies ~2^-21 from the f32 one, and the sums run
+# max|3xTF32 - JAX f32| <= F32_RTOL * max|JAX f32| (the kernel's gate on the
+# card, tests/torch_card.py): each product lies ~2^-21 from the f32 one, and the sums run
 # in another order than the Pallas kernel's im2col
 F32_RTOL = 1e-4
 
@@ -38,7 +39,7 @@ SHAPES = [
     ((1, 33, 17, 3), [(3, 5), (5, 5), (5, 2)]),
 ]
 
-# the float32 main path's stages: ProbUNet's 13 trunk blocks (chip_smoke.py
+# the float32 main path's stages: ProbUNet's 13 trunk blocks (tests/torch_card.py
 # PROB_BLOCKS, (size, C_in after the concat, C_out)) at the batches its
 # path runs them (a sample, the train step, a validation image's loss
 # repeats), and the U-Net's 7 blocks at the f32 step's batch 12

@@ -15,7 +15,7 @@ machine, which has no JAX, without the suite's ``conftest.py``:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_fold_card.py
 
-(``chip_smoke.py`` phase 15 runs it so.)
+(as every ``tests/test_torch_*_card.py`` runs on the card).
 """
 
 import contextlib

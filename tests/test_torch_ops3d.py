@@ -170,7 +170,7 @@ def test_batch_norm_5d_matches_jax():
 def test_bn_free_conv_seq_3d_raises():
     """A BN-free sequence on 5-D input has no kernel (the chain kernel is 2D)
     and no registered experiment builds one: it raises on every device, here
-    on the CPU (``chip_smoke.py`` phase 10 checks the card). With BatchNorm
+    on the CPU (``tests/test_torch_brats_card.py`` checks the card). With BatchNorm
     the same 3D sequence runs."""
     x = torch.from_numpy(_np(np.random.default_rng(8), 1, 6, 5, 7, 3))
     with pytest.raises(NotImplementedError, match="BN-free 3D"):

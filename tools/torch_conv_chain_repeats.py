@@ -28,11 +28,11 @@ import sys
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-sys.path.insert(0, os.path.join(REPO, "tools"))
+sys.path[:0] = [REPO, os.path.join(REPO, "tools"), os.path.join(REPO, "tests")]
 
-import chip_smoke as smoke  # noqa: E402  (the blocks, the card line)
 import torch_conv_chain_stages as stages  # noqa: E402  (the other plans)
+from torch_card import (BATCH, BLOCKS, FILTERS, PROB_BATCH, PROB_BLOCKS, PROB_CHECK_BATCHES, TRAIN_BATCH,  # noqa: E402
+                        block_chans, card_line, chain_weights)
 from unet_zoo_tpu_torch.models.registry import get_model  # noqa: E402
 from unet_zoo_tpu_torch.ops.pallas import _build, conv_chain  # noqa: E402
 
@@ -55,18 +55,18 @@ def f32_repeats(dev, card: str, repeats: int) -> int:
     gen = torch.Generator().manual_seed(1)
     total = 0
     with torch.inference_mode():
-        for block, size, ci, co in smoke.PROB_BLOCKS:
-            chans = [(ci, co)] + [(co, co)] * (smoke.STAGES_PER_BLOCK - 1)
-            ks, bs = smoke.chain_weights(chans, gen, dev)
+        for block, size, ci, co in PROB_BLOCKS:
+            chans = block_chans(ci, co)
+            ks, bs = chain_weights(chans, gen, dev)
             packed = [conv_chain.pack_kernel(k, torch.float32) for k in ks]
-            for batch in smoke.PROB_CHECK_BATCHES:
+            for batch in PROB_CHECK_BATCHES:
                 x = torch.randn((batch, size, size, ci), generator=gen).to(dev)
                 n, worst = differing(lambda: conv_chain.fused_conv_chain(x, ks, bs, packed=packed), repeats)
                 total += n
                 print(f"[block] f32 {block} ({batch}, {size}, {size}, {ci})->{co} x3: {n} of {repeats} launches "
                       f"differ from the first, max|diff| {worst:.4g} | card: {card}", flush=True)
             for j, (c_in, c_out) in enumerate(chans):
-                shape = (smoke.PROB_BATCH, size, size, c_in)
+                shape = (PROB_BATCH, size, size, c_in)
                 x = torch.relu(torch.randn(shape, generator=gen).to(dev))
                 reads = []
                 for name, choices in {"own plan": {}, **stages.F32_PLANS}.items():
@@ -88,19 +88,19 @@ def main() -> int:
         print("torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    card = smoke.card_line()
+    card = card_line()
     _build.load()
     if args.dtype == "float32":
         total = f32_repeats(dev, card, args.repeats)
         print(f"[repeats] {total} float32 launches differ from their first | card: {card}")
         return 1 if total else 0
-    model = get_model("unet", num_classes=2, num_filters=smoke.FILTERS, dtype=torch.bfloat16, device=dev,
+    model = get_model("unet", num_classes=2, num_filters=FILTERS, dtype=torch.bfloat16, device=dev,
                       generator=torch.Generator().manual_seed(0)).eval()
     gen = torch.Generator(device=dev).manual_seed(1)
     total = 0
     with torch.inference_mode():
-        for batch in (smoke.BATCH, smoke.TRAIN_BATCH):
-            for block, size, ci, co in smoke.BLOCKS:
+        for batch in (BATCH, TRAIN_BATCH):
+            for block, size, ci, co in BLOCKS:
                 convs = [m.conv for m in getattr(model, block).convs.children()]
                 ks, bs = [c.weight for c in convs], [c.bias for c in convs]
                 x = torch.randn((batch, size, size, ci), generator=gen, device=dev).to(torch.bfloat16)
@@ -109,10 +109,10 @@ def main() -> int:
                 total += n
                 print(f"[block] {block} ({batch}, {size}, {size}, {ci})->{co} x3: {n} of {args.repeats} launches "
                       f"differ from the first, max|diff| {worst:.4g} | card: {card}", flush=True)
-        for block, size, ci, co in smoke.BLOCKS:
+        for block, size, ci, co in BLOCKS:
             convs = [m.conv for m in getattr(model, block).convs.children()]
             for j, c in enumerate(convs):
-                shape = (smoke.BATCH, size, size, c.weight.shape[1])
+                shape = (BATCH, size, size, c.weight.shape[1])
                 x = torch.relu(torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
                 w = conv_chain.pack_kernel(c.weight, x.dtype)
                 reads = []

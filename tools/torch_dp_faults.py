@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Phase 12's data-parallel readings with a fault planted, on one CUDA card.
+"""The data-parallel card checks' readings with a fault planted, on one CUDA card.
 
     python3 tools/torch_dp_faults.py    # from the repository root
 
-Phase 12 of ``chip_smoke.py`` holds two processes that share the card over
-gloo against one process: (b) the first step's loss, gradient (relative L2)
+``tests/test_torch_parallel_card.py`` holds two processes that share the card
+over gloo against one process: (b) the first step's loss, gradient (relative L2)
 and running statistics of ``phiseg_7_5_12`` (float32, TF32 off, global
 batch 12) and the gradient of the float32 ``unet`` (global batch 64), and
 (c) the final parameters of ``Trainer.train`` (20 bf16 ``unet`` steps, a
@@ -23,8 +23,9 @@ beside the reading without a fault, and the card's own spread: the
 one-process step against itself with cuDNN's algorithms chosen otherwise
 (``cudnn.deterministic``, ``cudnn.benchmark``), and with BatchNorm's
 statistics by the group's formula (``max(E[x^2] - E[x]^2, 0)`` through a
-one-process gloo group) in place of the library's Welford pass. Phase
-12's limits must lie between the readings without and with a fault. Prints
+one-process gloo group) in place of the library's Welford pass. The card
+test's limits (``tests/torch_card.py`` ``DP_*``) must lie between the
+readings without and with a fault. Prints
 a line a reading, each with the card's name and power limit, and all of
 them as one JSON object last. Exits 1 without a card.
 """
@@ -44,24 +45,19 @@ from unittest import mock
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
-import chip_smoke as smoke  # noqa: E402
+from torch_card import (DP_PHISEG_BATCH, DP_RANKS, HARNESS_ITERATIONS, PHISEG_EXPERIMENT, TRAIN_BATCH,  # noqa: E402
+                        card_line, dp_train_config, free_port, lidc_data, train_batches)
 
 # (b): (experiment, its changes, the faults read)
 STEP_CASES = (
-    (smoke.PHISEG_EXPERIMENT, {"batch_size": smoke.DP_PHISEG_BATCH}, ("none", "unsynced_bn", "unreduced_grad")),
-    ("unet", {"batch_size": smoke.TRAIN_BATCH, "dtype": "float32"}, ("none", "unreduced_grad")),
+    (PHISEG_EXPERIMENT, {"batch_size": DP_PHISEG_BATCH}, ("none", "unsynced_bn", "unreduced_grad")),
+    ("unet", {"batch_size": TRAIN_BATCH, "dtype": "float32"}, ("none", "unreduced_grad")),
 )
 # (c): the faults read
 TRAIN_FAULTS = ("none", "wrong_rows", "unreduced_grad")
 TIMEOUT = 900  # seconds for the two processes' whole run
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def planted(fault: str, module):
@@ -91,12 +87,6 @@ def first_step(trainer, x, y) -> dict:
             "stats": {n: b.detach().cpu() for n, b in model.named_buffers() if "running" in n}}
 
 
-def lidc():
-    from unet_zoo_tpu_torch.data import LIDCData, synthetic
-
-    return LIDCData(synthetic.lidc_splits(smoke.HARNESS_SPLITS, smoke.IMAGE, seed=0), seed=0)
-
-
 def worker(rank: int, port: int, workdir: str) -> None:
     """One of the two processes: every faulty and fault-free run, written
     to ``WORKDIR/rank<RANK>.pt``."""
@@ -104,13 +94,12 @@ def worker(rank: int, port: int, workdir: str) -> None:
     from unet_zoo_tpu_torch.training import Trainer
     from unet_zoo_tpu_torch.training import trainer as trainer_module
 
-    smoke.check(init_distributed(f"127.0.0.1:{port}", smoke.DP_RANKS, rank, device="cuda", backend="gloo"),
-                "no process group")
+    assert init_distributed(f"127.0.0.1:{port}", DP_RANKS, rank, device="cuda", backend="gloo"), "no process group"
     mesh = make_mesh()
     out = {}
     for name, changes, faults in STEP_CASES:
         cfg = step_case(name, changes)
-        xs, ys = smoke.train_batches(1, mesh.device, cfg.batch_size)
+        xs, ys = train_batches(1, mesh.device, cfg.batch_size)
         rows = batch_spec(mesh, cfg.batch_size)
         for fault in faults:
             with planted(fault, trainer_module):
@@ -120,9 +109,8 @@ def worker(rank: int, port: int, workdir: str) -> None:
             torch.cuda.empty_cache()
     for fault in TRAIN_FAULTS:
         with planted(fault, trainer_module):
-            tr = Trainer(smoke.dp_train_config(), seed=0, log_dir=os.path.join(workdir, f"train_{fault}{rank}"),
-                         mesh=mesh)
-            tr.train(lidc())
+            tr = Trainer(dp_train_config(), seed=0, log_dir=os.path.join(workdir, f"train_{fault}{rank}"), mesh=mesh)
+            tr.train(lidc_data())
             tr.close()
         out[("train", fault)] = {n: p.detach().cpu() for n, p in tr.state.model.named_parameters()}
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
@@ -166,10 +154,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     readings = {"card": card}
     with tempfile.TemporaryDirectory(prefix="torch_dp_faults_") as workdir:
-        port = smoke.free_port()
+        port = free_port()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", str(r), str(port), workdir],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(smoke.DP_RANKS)]
+                 for r in range(DP_RANKS)]
         try:
             outs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
         finally:
@@ -179,16 +167,15 @@ def main() -> int:
                     p.wait()
         for r, (p, out) in enumerate(zip(procs, outs)):
             tail = "\n".join(out.splitlines()[-40:])
-            smoke.check(p.returncode == 0 and f"DONE {r}" in out, f"process {r} exited {p.returncode}:\n{tail}")
+            assert p.returncode == 0 and f"DONE {r}" in out, f"process {r} exited {p.returncode}:\n{tail}"
         got = torch.load(os.path.join(workdir, "rank0.pt"), weights_only=False)
         # this process alone, for BatchNorm by the group's formula
-        smoke.check(init_distributed(f"127.0.0.1:{smoke.free_port()}", 1, 0, device="cuda", backend="gloo"),
-                    "no process group")
+        assert init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", backend="gloo"), "no process group"
 
         # (b): each faulty first step against one process's, and the card's own spread
         for name, changes, faults in STEP_CASES:
             cfg = step_case(name, changes)
-            xs, ys = smoke.train_batches(1, dev, cfg.batch_size)
+            xs, ys = train_batches(1, dev, cfg.batch_size)
             one = {}
             for label, flags in (("default", {}), ("deterministic", {"deterministic": True}),
                                  ("benchmark", {"benchmark": True}), ("group formula", None)):
@@ -212,9 +199,9 @@ def main() -> int:
                       f"process: " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()) + f" | card: {card}", flush=True)
 
         # (c): each faulty train() against one process's
-        tr = Trainer(smoke.dp_train_config(), dev, seed=0, log_dir=os.path.join(workdir, "train_one"))
+        tr = Trainer(dp_train_config(), dev, seed=0, log_dir=os.path.join(workdir, "train_one"))
         start = {n: p.detach().clone() for n, p in tr.state.model.named_parameters()}
-        tr.train(lidc())
+        tr.train(lidc_data())
         tr.close()
         final = {n: p.detach() for n, p in tr.state.model.named_parameters()}
         moved = math.sqrt(sum((final[n] - start[n]).double().square().sum().item() for n in final))
@@ -222,7 +209,7 @@ def main() -> int:
             apart = math.sqrt(sum((got[("train", fault)][n].to(dev) - final[n]).double().square().sum().item()
                                   for n in final))
             readings[f"(c) train fault {fault}"] = {"apart_of_moved": apart / moved}
-            print(f"[dp faults] (c) Trainer.train({smoke.HARNESS_ITERATIONS}) bf16 unet bs{smoke.TRAIN_BATCH}, fault "
+            print(f"[dp faults] (c) Trainer.train({HARNESS_ITERATIONS}) bf16 unet bs{TRAIN_BATCH}, fault "
                   f"{fault}: final parameters {apart / moved:.4f} of the distance one process moved them "
                   f"({moved:.4e}) | card: {card}", flush=True)
         torch.distributed.destroy_process_group()

@@ -11,8 +11,8 @@ error; with cuDNN's conv gradients, TF32 off as ``Trainer`` sets it); and, as
 yardsticks the port never takes, every block on the chain's plain version,
 whose convs are cuDNN's, in float32 with TF32 off and with TF32 on. Each is
 also held against the same weights on the CPU: the float32 forward of two
-images (max|diff| over max|ref|, beside the 1e-4 gate of ``chip_smoke.py``
-phase 3). Times are CUDA events, the min of 2 rounds of N steps after a
+images (max|diff| over max|ref|, beside the 1e-4 gate of
+``tests/test_torch_unet_card.py::test_forward_matches_the_f32_cpu_model``). Times are CUDA events, the min of 2 rounds of N steps after a
 warm-up step; each line carries the card's name and power limit. Exits 1
 without a card.
 """
@@ -24,7 +24,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 from unittest import mock
@@ -32,13 +31,6 @@ from unittest import mock
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-F32_GATE = 1e-4  # chip_smoke.py phase 3: max|diff| <= 1e-4 * max|ref|
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 @contextlib.contextmanager
@@ -68,7 +60,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from torch_card import F32_RTOL, card_line
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.models.registry import get_model
     from unet_zoo_tpu_torch.ops.pallas import conv_chain
@@ -110,11 +103,11 @@ def main() -> int:
                     end.synchronize()
                     best = min(best, start.elapsed_time(end) / args.steps)
                 results[name] = {"ms": best, "images_s": args.batch / best * 1e3, "launches": launches,
-                                 "forward_err_of_max": err, "holds_f32_gate": err <= F32_GATE}
+                                 "forward_err_of_max": err, "holds_f32_gate": err <= F32_RTOL}
                 print(f"[f32 route] {name:<6} ({trainer.chain_route if name == 'kernel' else 'plain chain'}) unet "
                       f"f32 train step bs{args.batch}: {best:.3f} ms, "
                       f"{args.batch / best * 1e3:.1f} images/s, {launches} conv-chain launches a step; f32 forward "
-                      f"vs CPU {err:.3e} of max|ref| (gate {F32_GATE}: {'holds' if err <= F32_GATE else 'fails'}) "
+                      f"vs CPU {err:.3e} of max|ref| (gate {F32_RTOL}: {'holds' if err <= F32_RTOL else 'fails'}) "
                       f"| card: {card}", flush=True)
                 del trainer, m_gpu
                 torch.cuda.empty_cache()

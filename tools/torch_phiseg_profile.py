@@ -42,10 +42,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import card_line, cuda_ms, train_batches
+    from torch_card import card_line, cuda_ms, train_batches
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer
 

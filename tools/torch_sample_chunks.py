@@ -21,7 +21,6 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -30,12 +29,6 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNKS = (None, 16, 8, 6, 4, 2, 1)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def main() -> int:
@@ -47,7 +40,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_sample_chunks: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    from torch_card import card_line
+
     from unet_zoo_tpu_torch.data import synthetic
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.training import Trainer

@@ -4,8 +4,8 @@
     python3 tools/torch_space_profile.py    # from the repository root
 
 Starts two processes that share the card over gloo on a space-2 mesh (one
-data group, its image height split in two), as ``chip_smoke.py`` phase 14
-does, and prints from each: the ms of one halo exchange of a (64, 64, 128,
+data group, its image height split in two), as
+``tests/test_torch_space_card.py`` does, and prints from each: the ms of one halo exchange of a (64, 64, 128,
 32) bf16 activation (mean of 50 after 5), the ms of three bf16 ``unet``
 train steps at bs64 128x128 (the first builds everything), and from the
 first process ``torch.profiler``'s tables of a fourth step, by host time
@@ -31,24 +31,24 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
+sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
 
 TIMEOUT = 240
 
 
 def worker(rank: int, port: str) -> None:
-    import chip_smoke
     from torch.profiler import ProfilerActivity, profile
 
     from unet_zoo_tpu_torch.experiments import get_experiment
     from unet_zoo_tpu_torch.parallel import init_distributed, make_mesh
     from unet_zoo_tpu_torch.parallel.space import space_sharding
     from unet_zoo_tpu_torch.training import Trainer
+    from torch_card import SPACE_MEMORY_FRACTION, card_line, train_batches
 
     init_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda", backend="gloo")
     mesh = make_mesh(space=2)
     dev = mesh.device
-    torch.cuda.set_per_process_memory_fraction(chip_smoke.SPACE_MEMORY_FRACTION, dev)
+    torch.cuda.set_per_process_memory_fraction(SPACE_MEMORY_FRACTION, dev)
     x = torch.randn(64, 64, 128, 32, device=dev, dtype=torch.bfloat16)
     with space_sharding(mesh) as sp:
         for n in (5, 50):
@@ -60,7 +60,7 @@ def worker(rank: int, port: str) -> None:
         halo_ms = (time.perf_counter() - t0) / 50 * 1e3
     print(f"[{rank}] halo of (64, 64, 128, 32) bf16: {halo_ms:.3f} ms a call", flush=True)
     cfg = dataclasses.replace(get_experiment("unet"), dtype="bfloat16", batch_size=64)
-    xs, ys = chip_smoke.train_batches(4, dev)
+    xs, ys = train_batches(4, dev)
     with tempfile.TemporaryDirectory() as log_dir:
         tr = Trainer(cfg, seed=0, log_dir=log_dir, mesh=mesh)
         for i in range(3):
@@ -75,14 +75,14 @@ def worker(rank: int, port: str) -> None:
     if rank == 0:
         print(prof.key_averages().table(sort_by="cpu_time_total", row_limit=30), flush=True)
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15), flush=True)
-        print(chip_smoke.card_line(), flush=True)
+        print(card_line(), flush=True)
 
 
 def width_resize_ms() -> None:
     """The two routes of the width resize (module docstring), each timed by events."""
     import torch.nn.functional as F
 
-    import chip_smoke
+    from torch_card import card_line, cuda_ms
     from unet_zoo_tpu_torch.parallel.space import resize_axis
 
     x = torch.randn(64, 64, 64, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
@@ -92,10 +92,10 @@ def width_resize_ms() -> None:
         "space.resize_axis": lambda: resize_axis(x, 2, 128, "linear", False),
     }
     for name, route in routes.items():
-        ms = chip_smoke.cuda_ms(lambda: route().float().sum().backward(), 5)
+        ms = cuda_ms(lambda: route().float().sum().backward(), 5)
         print(f"width resize (64, 64, 64, 64) bf16 -> 128 columns, forward and backward, {name}: {ms:.3f} ms",
               flush=True)
-    print(chip_smoke.card_line(), flush=True)
+    print(card_line(), flush=True)
 
 
 def main() -> int:

@@ -68,7 +68,7 @@
 //   wgmma that read it may be in flight (C7513). So the roles branch on a
 //   shuffled, warp-uniform warp index, the mbarrier wait loops inside its
 //   asm, and the last tap of a chunk drains the pipeline before the chunk
-//   loop's next pass (chip_smoke.py fails on either warning).
+//   loop's next pass (tests/test_torch_kernel_card.py fails on either warning).
 // * An mbarrier arrive does not wait for an ldmatrix still in flight before
 //   it (the SASS issues the arrive right behind the LDSM). Released right
 //   after the last tap's ldmatrix, a halo stage could take the producer's
@@ -76,8 +76,8 @@
 //   batch 512 went wrong in about 1 launch of 20, by up to 1.06
 //   (tools/torch_conv_chain_repeats.py, NVIDIA H100 80GB HBM3 at 700 W).
 //   So a consumer releases the halo stage only after the wgmmas that
-//   consumed those registers are done, and chip_smoke.py holds every
-//   block's repeated launches to one bit-identical result.
+//   consumed those registers are done, and tests/test_torch_kernel_card.py
+//   holds every block's repeated launches to one bit-identical result.
 // * A pipeline fault must not hang the card: a wait that outlasts ~10 s
 //   traps, and the launch reports an error.
 // * Tensor maps hold the global address, so both are encoded on the host at

@@ -142,7 +142,7 @@ EVAL_IMAGE_WINDOW = 8
 PANELS = 4
 # samples a BraTS volume decodes at a time: at 128^3 a 16-sample fold decoded
 # whole peaks near 47 GiB of the card's 80, 4 at a time near 14 GiB, in the
-# same time (``chip_smoke.py`` phase 10 (c), PERF.md)
+# same time (PERF.md; ``tests/test_torch_brats_card.py`` holds the chunks to the whole fold)
 VOLUME_SAMPLE_CHUNK = 4
 # a 2D PHiSeg fold above EVAL_SAMPLE_PIXELS samples x pixels decodes
 # EVAL_SAMPLE_CHUNK samples at a time; the LIDC 100-sample fold at 128x128
@@ -300,7 +300,7 @@ class Trainer:
             else:  # the reference goes on from scratch
                 log.info("pretrained %s not found; training from scratch", path)
 
-    # the phases of one step, in order (``chip_smoke.py`` times each)
+    # the phases of one step, in order (each a ``uz.step.*`` span)
 
     def _global(self, batch: int) -> Tuple[int, slice]:
         """(the global batch, this process's rows of it) for a local batch."""
